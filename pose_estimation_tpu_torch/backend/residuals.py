@@ -1,0 +1,154 @@
+"""Residuals and analytic Jacobians of the motion-only BA.
+
+Counterpart of the IMU, prior and reprojection parts of
+`pose_estimation_tpu/backend/residuals.py` (the initializer's residuals are
+not ported yet). Every function broadcasts over a leading pair dimension
+[W, ...] (the JAX package vmaps instead). The solver works on increments
+applied right-multiplicatively: R <- R exp(dr), p <- p + R dp.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pose_estimation_tpu_torch.utils import lie
+from pose_estimation_tpu_torch.utils.lie import mv
+
+
+def whitener(inv_cov: torch.Tensor) -> torch.Tensor:
+    """L^T with L L^T = inv_cov. [..., n, n]. A matrix that is not
+    positive definite gives NaN, as `jnp.linalg.cholesky` does."""
+    chol, info = torch.linalg.cholesky_ex(inv_cov)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(chol, float("nan")), chol).transpose(-1, -2)
+
+
+def imu_residual(dr_i, dp_i, dv_i, ddbg_i, ddba_i,
+                 dr_j, dp_j, dv_j, ddbg_j, ddba_j,
+                 R_i, p_i, v_i, dbg_i, dba_i,
+                 R_j, p_j, v_j, dbg_j, dba_j,
+                 ic, gravity, lt, off_bg=0.0, off_ba=0.0):
+    """Whitened 15-residual [r_R, r_v, r_p, r_bg, r_ba] per pair."""
+    up_dbg_i = dbg_i + ddbg_i
+    up_dba_i = dba_i + ddba_i
+    uR_i = R_i @ lie.so3_exp(dr_i)
+    uR_j = R_j @ lie.so3_exp(dr_j)
+    corrected_dR = ic.dR @ lie.so3_exp(mv(ic.d_R_bg, up_dbg_i))
+    r_R = lie.so3_log(corrected_dR.transpose(-1, -2) @ (uR_i.transpose(-1, -2) @ uR_j))
+
+    dt = ic.dt[..., None]
+    dt2 = ic.dt2[..., None]
+    uv_i = v_i + dv_i
+    uv_j = v_j + dv_j
+    uR_iT = uR_i.transpose(-1, -2)
+    r_v = mv(uR_iT, uv_j - uv_i - gravity * dt) - (
+        ic.dv + mv(ic.d_v_bg, up_dbg_i) + mv(ic.d_v_ba, up_dba_i)
+    )
+    up_i = p_i + mv(R_i, dp_i)
+    up_j = p_j + mv(R_j, dp_j)
+    r_p = mv(uR_iT, up_j - up_i - uv_i * dt - gravity * (dt2 / 2)) - (
+        ic.dp + mv(ic.d_p_bg, up_dbg_i) + mv(ic.d_p_ba, up_dba_i)
+    )
+    r_bg = off_bg + dbg_j + ddbg_j - up_dbg_i
+    r_ba = off_ba + dba_j + ddba_j - up_dba_i
+    res = torch.cat([r_R, r_v, r_p, r_bg, r_ba], dim=-1)
+    return mv(lt, res)
+
+
+def _blocks(shape_lead, rows, cols, dtype, device):
+    return torch.zeros(shape_lead + (rows, cols), dtype=dtype, device=device)
+
+
+def imu_jacobians(R_i, p_i, v_i, dbg_i, dba_i, R_j, p_j, v_j, ic, gravity):
+    """Whitened Jacobian blocks at zero increment: (J_pose_i [.., 15, 6],
+    J_vb_i [.., 15, 9], J_pose_j [.., 15, 6], J_vb_j [.., 15, 9])."""
+    dtype, dev = R_i.dtype, R_i.device
+    lead = R_i.shape[:-2]
+    eye = torch.eye(3, dtype=dtype, device=dev).expand(lead + (3, 3))
+    R_iT = R_i.transpose(-1, -2)
+    dt = ic.dt[..., None]
+    dt2 = ic.dt2[..., None]
+    residual_R = lie.so3_log(
+        (ic.dR @ lie.so3_exp(mv(ic.d_R_bg, dbg_i))).transpose(-1, -2) @ (R_iT @ R_j)
+    )
+    jr_inv = lie.right_jacobian_inverse(residual_R)
+
+    j_pose_i = _blocks(lead, 15, 6, dtype, dev)
+    j_pose_i[..., 0:3, 0:3] = -jr_inv @ R_j.transpose(-1, -2) @ R_i
+    j_pose_i[..., 3:6, 0:3] = lie.hat(mv(R_iT, v_j - v_i - gravity * dt))
+    j_pose_i[..., 6:9, 0:3] = lie.hat(
+        mv(R_iT, p_j - p_i - v_i * dt - gravity * (dt2 / 2))
+    )
+    j_pose_i[..., 6:9, 3:6] = -eye
+
+    j_vb_i = _blocks(lead, 15, 9, dtype, dev)
+    j_vb_i[..., 0:3, 3:6] = (
+        -jr_inv @ lie.so3_exp(residual_R).transpose(-1, -2)
+        @ lie.right_jacobian(mv(ic.d_R_bg, dbg_i)) @ ic.d_R_bg
+    )
+    j_vb_i[..., 3:6, 0:3] = -R_iT
+    j_vb_i[..., 3:6, 3:6] = -ic.d_v_bg
+    j_vb_i[..., 3:6, 6:9] = -ic.d_v_ba
+    j_vb_i[..., 6:9, 0:3] = -R_iT * ic.dt[..., None, None]
+    j_vb_i[..., 6:9, 3:6] = -ic.d_p_bg
+    j_vb_i[..., 6:9, 6:9] = -ic.d_p_ba
+    j_vb_i[..., 9:12, 3:6] = -eye
+    j_vb_i[..., 12:15, 6:9] = -eye
+
+    j_pose_j = _blocks(lead, 15, 6, dtype, dev)
+    j_pose_j[..., 0:3, 0:3] = jr_inv
+    j_pose_j[..., 6:9, 3:6] = R_iT @ R_j
+
+    j_vb_j = _blocks(lead, 15, 9, dtype, dev)
+    j_vb_j[..., 3:6, 0:3] = R_iT
+    j_vb_j[..., 9:12, 3:6] = eye
+    j_vb_j[..., 12:15, 6:9] = eye
+
+    lt = whitener(ic.inv_cov)
+    return lt @ j_pose_i, lt @ j_vb_i, lt @ j_pose_j, lt @ j_vb_j
+
+
+def prior_jacobians(R_i, dbg_i, R_j, ic, prior_factor: float):
+    """(J_pose_j [.., 15, 6], J_vb_j [.., 15, 9]) of the anchor prior."""
+    dtype, dev = R_i.dtype, R_i.device
+    lead = R_i.shape[:-2]
+    eye = torch.eye(3, dtype=dtype, device=dev).expand(lead + (3, 3))
+    R_iT = R_i.transpose(-1, -2)
+    residual_R = lie.so3_log(
+        (ic.dR @ lie.so3_exp(mv(ic.d_R_bg, dbg_i))).transpose(-1, -2) @ (R_iT @ R_j)
+    )
+    j_pose_j = _blocks(lead, 15, 6, dtype, dev)
+    j_pose_j[..., 0:3, 0:3] = lie.right_jacobian_inverse(residual_R)
+    j_pose_j[..., 6:9, 3:6] = R_iT @ R_j
+    j_vb_j = _blocks(lead, 15, 9, dtype, dev)
+    j_vb_j[..., 3:6, 0:3] = R_iT
+    j_vb_j[..., 9:12, 3:6] = eye
+    j_vb_j[..., 12:15, 6:9] = eye
+    lt = whitener(ic.inv_cov * prior_factor)
+    return lt @ j_pose_j, lt @ j_vb_j
+
+
+def reprojection_error_and_jacobian(R_wb, p_wb, landmark_w, pixel, R_cb, p_cb,
+                                    fx, fy, cx, cy, inv_std):
+    """Per-observation 2-residual and 2x6 pose Jacobian (pre-linearized at
+    the current state). Returns (error [..., 2], F [..., 2, 6], depth)."""
+    temp = mv(R_wb.transpose(-1, -2), landmark_w - p_wb)   # landmark in body
+    x_cam = mv(R_cb, temp) + p_cb
+    x, y, z = x_cam[..., 0], x_cam[..., 1], x_cam[..., 2]
+    safe_z = torch.where(z.abs() < 1e-12, 1e-12, z)
+    u = fx * x / safe_z + cx
+    v = fy * y / safe_z + cy
+    error = torch.stack(
+        [inv_std[0] * (u - pixel[..., 0]), inv_std[1] * (v - pixel[..., 1])], dim=-1
+    )
+    zero = torch.zeros_like(z)
+    d_e_pcam = torch.stack(
+        [
+            torch.stack([fx / safe_z, zero, -fx * x / (safe_z * safe_z)], dim=-1),
+            torch.stack([zero, fy / safe_z, -fy * y / (safe_z * safe_z)], dim=-1),
+        ],
+        dim=-2,
+    )                                                       # [..., 2, 3]
+    f_dp = -(inv_std[:, None] * d_e_pcam) @ R_cb
+    f_dr = -(f_dp @ lie.hat(temp))
+    return error, torch.cat([f_dr, f_dp], dim=-1), z

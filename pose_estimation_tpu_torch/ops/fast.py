@@ -1,0 +1,202 @@
+"""FAST-9/16 detection with per-cell selection: kernel K1 and its twin.
+
+Counterpart of `pose_estimation_tpu/ops/fast.py` (plain form) and
+`pose_estimation_tpu/ops/pallas_fast.py:fast_select_pallas` (fused TPU
+kernel). `fast_select` launches the CUDA kernel `csrc/fast_select.cu` on a
+CUDA tensor and runs the twin `select_plain` only on a CPU tensor.
+`select_keypoints_fused` adds the plane top-k, which stays in torch as a
+stable descending sort: `lax.top_k` breaks ties toward the lower index and
+level-0 scores are integers, so ties are common.
+
+Output contract of both: for each plane, candidates in raster order
+(cell-row, cell-col, k) with C = n_cell_rows * (W / 16) * k_per_cell,
+n_cell_rows = 2 * ceil(H / 32): score [N, C] (invalid -1e9), flat code
+y * W + x [N, C] int32 (invalid 0), subpixel x, y [N, C] (invalid 0).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pose_estimation_tpu_torch.ops import kernels
+
+NEG = -1e9
+CELL = 16
+BAND = 32   # the cell-row count follows the TPU kernel's 32-row bands
+
+# Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx).
+CIRCLE = (
+    (-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
+    (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
+)
+
+
+class Keypoints(NamedTuple):
+    xy: torch.Tensor     # [N, K, 2] (x, y)
+    score: torch.Tensor  # [N, K]
+    valid: torch.Tensor  # [N, K] bool
+
+
+def _shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    return torch.roll(img, (-dy, -dx), dims=(-2, -1))
+
+
+def fast_score(img: torch.Tensor) -> torch.Tensor:
+    """Per-pixel FAST score [..., H, W]: max over bright and dark of the
+    max over 9-arcs of the minimum ring-minus-center difference. Cyclic
+    shifts wrap at the border; the wrapped band lies outside the detection
+    border."""
+    diffs = [_shift2d(img, dy, dx) - img for dy, dx in CIRCLE]
+
+    def arc_min9(ds):
+        m3 = [torch.minimum(torch.minimum(ds[i], ds[(i + 1) % 16]), ds[(i + 2) % 16])
+              for i in range(16)]
+        m9 = [torch.minimum(torch.minimum(m3[i], m3[(i + 3) % 16]), m3[(i + 6) % 16])
+              for i in range(16)]
+        out = m9[0]
+        for i in range(1, 16):
+            out = torch.maximum(out, m9[i])
+        return out
+
+    return torch.maximum(arc_min9(diffs), arc_min9([-d for d in diffs]))
+
+
+def nms3(score: torch.Tensor) -> torch.Tensor:
+    """3x3 non-max suppression mask, ties broken toward the top-left."""
+    keep = torch.ones_like(score, dtype=torch.bool)
+    strictly_before = True
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                strictly_before = False
+                continue
+            nb = _shift2d(score, dy, dx)
+            keep &= (score > nb) if strictly_before else (score >= nb)
+    return keep
+
+
+def _para(sm, s0, sp):
+    den = sm - 2.0 * s0 + sp
+    off = torch.where(den.abs() > 1e-6, 0.5 * (sm - sp) / den, 0.0)
+    return torch.clamp(off, -0.5, 0.5)
+
+
+def select_plain(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
+                 border: int = 19, k_per_cell: int = 4):
+    """Twin of kernel K1: FAST score -> NMS -> gates -> per-cell threshold
+    fallback -> top-k per cell -> subpixel fit. Returns (vals, codes, xs,
+    ys), each [N, C], in the module's output contract."""
+    n, h, w = stack.shape
+    if w % CELL:
+        raise ValueError(f"width {w} is not a multiple of {CELL}")
+    dev = stack.device
+    score = fast_score(stack)
+    keep = nms3(score)
+    lh = torch.tensor([b[0] for b in bounds], device=dev)[:, None, None]
+    lw = torch.tensor([b[1] for b in bounds], device=dev)[:, None, None]
+    ys_ = torch.arange(h, device=dev)[None, :, None]
+    xs_ = torch.arange(w, device=dev)[None, None, :]
+    inb = (ys_ >= border) & (ys_ < lh - border) & (xs_ >= border) & (xs_ < lw - border)
+    s = torch.where(keep & (score > 0) & inb, score, NEG)
+
+    hp = -(-h // BAND) * BAND
+    ncr, ncx = hp // CELL, w // CELL
+    s = torch.nn.functional.pad(s, (0, 0, 0, hp - h), value=NEG)
+    cells = s.reshape(n, ncr, CELL, ncx, CELL).permute(0, 1, 3, 2, 4).reshape(
+        n, ncr * ncx, CELL * CELL
+    )
+    cell_max = cells.amax(dim=2, keepdim=True)
+    thr = torch.where(cell_max > th_hi, th_hi, th_lo)
+    cand = torch.where(cells > thr, cells, NEG)
+
+    # top-k per cell by k (argmax, mask) passes: argmax returns the first
+    # maximum, which is the lowest in-cell raster index
+    comb = cand.clone()
+    idxs = []
+    for _ in range(k_per_cell):
+        idx = torch.argmax(comb, dim=-1, keepdim=True)
+        idxs.append(idx)
+        comb.scatter_(-1, idx, float("-inf"))
+    top_i = torch.cat(idxs, dim=-1)                          # [n, C, k]
+    top_s = torch.gather(cand, -1, top_i)
+    cell_id = torch.arange(ncr * ncx, device=dev)[None, :, None]
+    py = (cell_id // ncx) * CELL + top_i // CELL
+    px = (cell_id % ncx) * CELL + top_i % CELL
+
+    flat = score.reshape(n, h * w)
+
+    def sc(yy, xx):
+        yy = yy.clamp(0, h - 1)
+        xx = xx.clamp(0, w - 1)
+        return torch.gather(flat, 1, (yy * w + xx).reshape(n, -1)).reshape(yy.shape)
+
+    s0 = sc(py, px)
+    fx = px.to(stack.dtype) + _para(sc(py, px - 1), s0, sc(py, px + 1))
+    fy = py.to(stack.dtype) + _para(sc(py - 1, px), s0, sc(py + 1, px))
+    ok = top_s > NEG / 2
+    vals = top_s.reshape(n, -1)
+    codes = torch.where(ok, py * w + px, 0).to(torch.int32).reshape(n, -1)
+    xs = torch.where(ok, fx, 0.0).reshape(n, -1)
+    ys = torch.where(ok, fy, 0.0).reshape(n, -1)
+    return vals, codes, xs, ys
+
+
+def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
+                border: int = 19, k_per_cell: int = 4):
+    """Kernel K1: fused FAST + NMS + gates + per-cell top-k + subpixel.
+
+    Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
+    _select_kernel` (via `fast_select_pallas`). On the H100 it is bound by
+    the per-pixel stencil arithmetic (a few hundred ALU operations per
+    4-byte pixel); the kernel stages a 16 x 128 tile with its halo in
+    shared memory, scores it once and selects with one warp per cell, so
+    only the selected slots reach device memory. A CUDA tensor launches the
+    kernel (or raises); a CPU tensor runs `select_plain`."""
+    if not stack.is_cuda:
+        return select_plain(stack, bounds, th_hi, th_lo, border, k_per_cell)
+    n, h, w = stack.shape
+    if stack.dtype != torch.float32 or not stack.is_contiguous():
+        raise ValueError("fast_select needs a contiguous float32 stack")
+    if w % CELL or len(bounds) != n:
+        raise ValueError(f"bad shape {tuple(stack.shape)} / {len(bounds)} bounds")
+    ncr = -(-h // BAND) * BAND // CELL
+    ncx = w // CELL
+    c = ncr * ncx * k_per_cell
+    vals = torch.empty((n, c), dtype=torch.float32, device=stack.device)
+    codes = torch.empty((n, c), dtype=torch.int32, device=stack.device)
+    xs = torch.empty_like(vals)
+    ys = torch.empty_like(vals)
+    lh = np.ascontiguousarray([b[0] for b in bounds], np.int32)
+    lw = np.ascontiguousarray([b[1] for b in bounds], np.int32)
+    err = kernels.library().fast_select_launch(
+        stack.data_ptr(), lh.ctypes.data, lw.ctypes.data,
+        vals.data_ptr(), codes.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+        n, h, w, ncr, ncx, float(th_hi), float(th_lo), int(border),
+        int(k_per_cell), torch.cuda.current_stream(stack.device).cuda_stream,
+    )
+    kernels.check(err, "fast_select")
+    fast_select.launches += 1
+    return vals, codes, xs, ys
+
+
+fast_select.launches = 0
+
+
+def plane_topk(vals, payloads, k: int):
+    """Top-k of vals [N, C] along axis 1, descending, ties to the lower
+    index (`lax.top_k` semantics), with the matching entries of each
+    payload [N, C]."""
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(vals, 1, order), [torch.gather(p, 1, order) for p in payloads]
+
+
+def select_keypoints_fused(stack, bounds, th_hi, th_lo, k_max,
+                           border: int = 19, k_per_cell: int = 4) -> Keypoints:
+    """K1 then the plane top-k: [N, k_max] keypoints per plane."""
+    vals, _codes, xs, ys = fast_select(stack, bounds, th_hi, th_lo, border, k_per_cell)
+    k_max = min(k_max, vals.shape[1])
+    g_s, (gx, gy) = plane_topk(vals, (xs, ys), k_max)
+    return Keypoints(xy=torch.stack([gx, gy], dim=-1), score=g_s, valid=g_s > NEG / 2)
