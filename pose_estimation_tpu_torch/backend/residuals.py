@@ -1,10 +1,10 @@
-"""Residuals and analytic Jacobians of the motion-only BA.
+"""Residuals and analytic Jacobians of the motion-only BA and of the
+initializer.
 
-Counterpart of the IMU, prior and reprojection parts of
-`pose_estimation_tpu/backend/residuals.py` (the initializer's residuals are
-not ported yet). Every function broadcasts over a leading pair dimension
-[W, ...] (the JAX package vmaps instead). The solver works on increments
-applied right-multiplicatively: R <- R exp(dr), p <- p + R dp.
+Counterpart of `pose_estimation_tpu/backend/residuals.py`. Every function
+broadcasts over a leading pair dimension [W, ...] (the JAX package vmaps,
+or loops over pairs, instead). The solver works on increments applied
+right-multiplicatively: R <- R exp(dr), p <- p + R dp.
 """
 
 from __future__ import annotations
@@ -152,3 +152,85 @@ def reprojection_error_and_jacobian(R_wb, p_wb, landmark_w, pixel, R_cb, p_cb,
     f_dp = -(inv_std[:, None] * d_e_pcam) @ R_cb
     f_dr = -(f_dp @ lie.hat(temp))
     return error, torch.cat([f_dr, f_dp], dim=-1), z
+
+
+# ---- Initializer residuals (`cost-functions.hpp:453-692`). Each takes the
+# pair-stacked constraints ic [B, ...] and returns whitened residuals
+# [B, n] or Jacobians [B, n, k]; `lt`, where given, is the whitener of the
+# block (constant over a solve, so the solvers compute it once).
+
+
+def _t(m):
+    return m.transpose(-1, -2)
+
+
+def gyr_bias_residual(ddbg, R_i, R_j, ic, lt=None):
+    """3-residual of BiasGyrCostFunction (:459-483)."""
+    r = lie.so3_log(_t(ic.dR @ lie.so3_exp(mv(ic.d_R_bg, ddbg))) @ (_t(R_i) @ R_j))
+    if lt is None:
+        lt = whitener(ic.inv_cov[..., 0:3, 0:3])
+    return mv(lt, r)
+
+
+def gyr_bias_jacobian(R_i, R_j, ic):
+    residual_R = lie.so3_log(_t(ic.dR) @ (_t(R_i) @ R_j))
+    j = -lie.right_jacobian_inverse(residual_R) @ _t(lie.so3_exp(residual_R)) @ ic.d_R_bg
+    return whitener(ic.inv_cov[..., 0:3, 0:3]) @ j
+
+
+def gravity_velocity_residual(dg, dv_i, dv_j, R_i, p_i, p_j, ic, lt=None):
+    """6-residual of GravityVelocityCostFunction (:502-519)."""
+    dt = ic.dt[..., None]
+    dt2 = ic.dt2[..., None]
+    r_v = mv(_t(R_i), dv_j - dv_i - dg * dt) - ic.dv
+    r_p = mv(_t(R_i), p_j - p_i - dv_i * dt - dg * (dt2 / 2)) - ic.dp
+    if lt is None:
+        lt = whitener(ic.inv_cov[..., 3:9, 3:9])
+    return mv(lt, torch.cat([r_v, r_p], dim=-1))
+
+
+def gravity_velocity_jacobians(R_i, ic):
+    """(J_g [B, 6, 3], J_vi [B, 6, 3], J_vj [B, 6, 3]); reference `:525-559`."""
+    dt = ic.dt[..., None, None]
+    dt2 = ic.dt2[..., None, None]
+    r_temp = -_t(R_i)
+    j_g = torch.cat([r_temp * dt, r_temp * (dt2 / 2)], dim=-2)
+    j_vi = torch.cat([r_temp, r_temp * dt], dim=-2)
+    j_vj = torch.cat([-r_temp, torch.zeros_like(r_temp)], dim=-2)
+    lt = whitener(ic.inv_cov[..., 3:9, 3:9])
+    return lt @ j_g, lt @ j_vi, lt @ j_vj
+
+
+def embed_axes(x2, axes, like):
+    """The 3-vector with x2's two entries at `axes` and zero elsewhere."""
+    out = torch.zeros(3, dtype=like.dtype, device=like.device)
+    return out.index_put((torch.tensor(list(axes), device=like.device),), x2)
+
+
+def alignment_residual(delta_r2, init_g, unit_g, axes):
+    """3-residual of AlignmentCostFunction (:578-613). `axes` are the two
+    free tangent indices (dataset profile)."""
+    return unit_g - mv(lie.so3_exp(embed_axes(delta_r2, axes, init_g)), init_g)
+
+
+def alignment_jacobian(init_g, axes):
+    """[3, 2] Jacobian: columns of hat(init_g) at the free axes (:617-631)."""
+    h = lie.hat(init_g)
+    return torch.stack([h[:, axes[0]], h[:, axes[1]]], dim=-1)
+
+
+def acc_bias_residual(ddba, R_i, v_i, v_j, p_i, p_j, ic, gravity, lt=None):
+    """6-residual of AccCostFunction (:649-663)."""
+    dt = ic.dt[..., None]
+    dt2 = ic.dt2[..., None]
+    r_v = mv(_t(R_i), v_j - v_i - gravity * dt) - (ic.dv + mv(ic.d_v_ba, ddba))
+    r_p = mv(_t(R_i), p_j - p_i - v_i * dt - gravity * (dt2 / 2)) - (
+        ic.dp + mv(ic.d_p_ba, ddba))
+    if lt is None:
+        lt = whitener(ic.inv_cov[..., 3:9, 3:9])
+    return mv(lt, torch.cat([r_v, r_p], dim=-1))
+
+
+def acc_bias_jacobian(ic):
+    j = torch.cat([-ic.d_v_ba, -ic.d_p_ba], dim=-2)
+    return whitener(ic.inv_cov[..., 3:9, 3:9]) @ j

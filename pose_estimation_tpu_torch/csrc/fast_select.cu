@@ -18,6 +18,8 @@
 // selects with one warp per cell, so nothing but the 4 x 4 outputs per
 // cell goes back to device memory.
 //
+// The score and NMS device code is shared with K3 (fast_common.cuh).
+//
 // Numerics equal the twin's: scores are exact (differences, min and max of
 // the same float32 values); the subpixel fit uses the same operations in
 // the same order with IEEE division (built without --use_fast_math).
@@ -25,12 +27,14 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "fast_common.cuh"
+
 namespace {
 
 constexpr int CELL = 16;
 constexpr int CPB = 8;                    // cells per block, horizontally
 constexpr int TW = CELL * CPB;            // 128 tile columns
-constexpr int HALO = 4;                   // FAST ring 3 + NMS 1
+constexpr int HALO = fastk::HALO;         // FAST ring 3 + NMS 1
 constexpr int LR = CELL + 2 * HALO;       // 24 staged rows
 constexpr int LC = TW + 2 * HALO;         // 136 staged columns
 constexpr int SR = CELL + 2;              // 18 score rows (tile + 1-px ring)
@@ -43,10 +47,6 @@ struct PlaneDims {
   int lh[MAX_PLANES];
   int lw[MAX_PLANES];
 };
-
-// Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx).
-__constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
 
 __device__ __forceinline__ float para(float sm, float s0, float sp) {
   // 1-D quadratic peak offset, clipped to half a pixel
@@ -87,24 +87,7 @@ fast_select_kernel(const float* __restrict__ stack, PlaneDims dims,
   // (y0 - 1 + r, x0 - 1 + c), i.e. tile[r + 3][c + 3]
   for (int i = threadIdx.x; i < SR * SC; i += blockDim.x) {
     int r = i / SC, c = i % SC;
-    float center = tile[r + 3][c + 3];
-    float d[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      d[k] = tile[r + 3 + kRingDy[k]][c + 3 + kRingDx[k]] - center;
-    float bright = -INFINITY, dark = -INFINITY;
-#pragma unroll
-    for (int s = 0; s < 16; ++s) {
-      float mn = d[s], mx = d[s];
-#pragma unroll
-      for (int j = 1; j < 9; ++j) {
-        mn = fminf(mn, d[(s + j) & 15]);
-        mx = fmaxf(mx, d[(s + j) & 15]);
-      }
-      bright = fmaxf(bright, mn);
-      dark = fmaxf(dark, -mx);
-    }
-    score[r][c] = fmaxf(bright, dark);
+    score[r][c] = fastk::score_at(&tile[0][0], LC, r + 3, c + 3);
   }
   __syncthreads();
 
@@ -114,10 +97,7 @@ fast_select_kernel(const float* __restrict__ stack, PlaneDims dims,
     int r = i / TW, c = i % TW;
     int gy = y0 + r, gx = x0 + c;
     float s = score[r + 1][c + 1];
-    bool keep = s > score[r][c] && s > score[r][c + 1] && s > score[r][c + 2] &&
-                s > score[r + 1][c] && s >= score[r + 1][c + 2] &&
-                s >= score[r + 2][c] && s >= score[r + 2][c + 1] &&
-                s >= score[r + 2][c + 2];
+    bool keep = fastk::nms_keep(&score[0][0], SC, r + 1, c + 1);
     bool inb = gy >= border && gy < lh - border && gx >= border && gx < lw - border;
     gated[r][c] = (keep && s > 0.0f && inb) ? s : NEG;
   }

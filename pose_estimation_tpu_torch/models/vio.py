@@ -1,14 +1,15 @@
 """The steady-state VIO frame step: preintegration -> ORB -> stereo and
-temporal matching -> motion-only BA -> keyframe decision -> pool update.
+temporal matching -> motion-only BA -> keyframe decision -> pool update;
+and the bootstrap steps before it (SfM frame, first OK frame).
 
 Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
 `init_vio_state`, `extract_rectified`, `front_end`, `_run_backend`,
-`pool_update`, `ok_step`). The JAX `lax.cond` branches that are cheap run
-both sides and select on the device; the three heavy ones (BA, the
-marginalization, the pool update) are Python branches, each costing one
-host sync per frame. The front end always follows the JAX package's kernel
-path; on a CUDA device it launches the CUDA kernels, on a CPU device their
-torch twins.
+`pool_update`, `ok_step`, `sfm_step`, `bootstrap_frame`). The JAX
+`lax.cond` branches that are cheap run both sides and select on the
+device; the three heavy ones (BA, the marginalization, the pool update)
+are Python branches, each costing one host sync per frame. The front end
+always follows the JAX package's kernel path; on a CUDA device it launches
+the CUDA kernels, on a CPU device their torch twins.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pose_estimation_tpu_torch.frontend import tracker
 from pose_estimation_tpu_torch.imu import preintegration as pre
 from pose_estimation_tpu_torch.models import pool as pool_mod
 from pose_estimation_tpu_torch.models import window as win_mod
-from pose_estimation_tpu_torch.ops import orb, remap, ransac
+from pose_estimation_tpu_torch.ops import matching, orb, pnp, ransac, remap, triangulate
 from pose_estimation_tpu_torch.utils import lie
 from pose_estimation_tpu_torch.utils.precision import apply_policy
 
@@ -46,6 +47,7 @@ class VIOConstants(NamedTuple):
     r2: torch.Tensor
     p1: torch.Tensor        # [3, 4] rectified projections
     p2: torch.Tensor
+    k_rect: torch.Tensor    # [3, 3] rectified camera matrix (for PnP)
     calib: Calib
     r_bc: torch.Tensor      # rectified camera -> body
     p_bc: torch.Tensor
@@ -74,6 +76,9 @@ class VIOStatic:
     cur_capacity: int
     pool_capacity: int
     window: int
+    # SfM bootstrap's PnP solver, from the reference's `solvePnP` switch:
+    # 0 -> "dlt", 1/3/4 -> "epnp", 2/5 -> "p3p" (not ported; ops.pnp raises)
+    pnp_solver: str = "dlt"
     marg_prior: bool = True
     marg_forget: float = 1.0
     ba_prior_sigma: float = 0.0
@@ -119,6 +124,7 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
         k_raw_l=k4(cfg.k_left), k_raw_r=k4(cfg.k_right),
         dist_l=d5(cfg.dist_left), dist_r=d5(cfg.dist_right),
         r1=t(cm.R1), r2=t(cm.R2), p1=t(cm.P1), p2=t(cm.P2),
+        k_rect=t(np.asarray(cm.P1)[:, :3]),
         calib=Calib(
             fx=t(cm.fx), fy=t(cm.fy), cx=t(cm.cx), cy=t(cm.cy),
             r_cb=t(r_cb_rect), p_cb=t(p_cb_rect),
@@ -139,6 +145,8 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
         max_acc_bias=cfg.max_acc_bias, prior_factor=cfg.prior_factor,
         max_iterations=cfg.max_num_iterations, cur_capacity=cfg.max_matches,
         pool_capacity=cfg.pool_capacity, window=cfg.window_size,
+        pnp_solver={0: "dlt", 1: "epnp", 2: "p3p", 3: "epnp", 4: "epnp",
+                    5: "p3p"}[cfg.solve_pnp],
         marg_prior=cfg.marg_prior, marg_forget=cfg.marg_forget,
         ba_prior_sigma=cfg.ba_prior_sigma,
     )
@@ -304,3 +312,43 @@ def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
         "rec_ic": pre.ImuConstraint(*(a[-1] for a in win.ics)),
     }
     return state, metrics
+
+
+def draw_sfm_uniforms(generator: torch.Generator, device):
+    """The (stereo RANSAC [64, 8], PnP RANSAC [512, 6]) uniforms of one SfM
+    frame."""
+    return (torch.rand((ransac.N_HYPOTHESES, 8), generator=generator, device=device),
+            torch.rand((pnp.N_HYPOTHESES, 6), generator=generator, device=device))
+
+
+def sfm_step(img_l, img_r, ref_desc, ref_xy, ref_valid, sfm_u,
+             consts: VIOConstants, static: VIOStatic, pnp_idx=None):
+    """Structure-from-motion bootstrap against the reference keyframe
+    (`FeatureTracker::structFromMotion`): stereo match -> RANSAC ->
+    triangulate -> match to the reference keyframe -> PnP RANSAC. `sfm_u`
+    is `draw_sfm_uniforms`' pair; `pnp_idx` [512, 6] replaces the PnP draw.
+    Returns (rvec, tvec, n_inliers, current left features), (rvec, tvec)
+    taking current-camera points into the reference camera frame."""
+    feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+    cur = tracker.internal_match(
+        feats_l, feats_r, sfm_u[0], static.cur_capacity,
+        static.match_ratio, static.min_match_dist, static.max_vertical_dist,
+    )
+    pts_cam = triangulate.triangulate(consts.p1, consts.p2, cur.px_l, cur.px_r)
+    depth = pts_cam[:, 2]
+    depth_ok = cur.valid & (depth > 0.1) & (depth < static.max_depth)
+    m = matching.match(cur.desc_l, ref_desc, depth_ok, ref_valid,
+                       static.match_ratio, static.min_match_dist)
+    res = pnp.pnp_ransac(pts_cam, ref_xy[m.index], m.valid, consts.k_rect, sfm_u[1],
+                         solver=static.pnp_solver, idx=pnp_idx)
+    return res.rvec, res.tvec, res.n_inliers, feats_l
+
+
+def bootstrap_frame(state: VIOState, img_l, img_r, ransac_u, consts: VIOConstants,
+                    static: VIOStatic):
+    """Initial stereo matching and pool seed after the initializer
+    (`visual-inertial-slam.cpp:101-107`). Returns (state, n_stereo)."""
+    cur, tr = front_end(img_l, img_r, state.pool, ransac_u, consts, static)
+    pool = pool_mod.record_observations(state.pool, tr.slot, tr.matched, cur.px_l)
+    state = pool_update(state._replace(pool=pool), cur, tr, consts, static)
+    return state, torch.sum(cur.valid)

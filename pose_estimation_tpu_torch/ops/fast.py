@@ -1,14 +1,23 @@
-"""FAST-9/16 detection with per-cell selection: kernel K1 and its twin.
+"""FAST-9/16 detection with per-cell selection: kernels K1 and K3 and
+their twins.
 
-Counterpart of `pose_estimation_tpu/ops/fast.py` (plain form) and
-`pose_estimation_tpu/ops/pallas_fast.py:fast_select_pallas` (fused TPU
-kernel). `fast_select` launches the CUDA kernel `csrc/fast_select.cu` on a
-CUDA tensor and runs the twin `select_plain` only on a CPU tensor.
-`select_keypoints_fused` adds the plane top-k, which stays in torch as a
-stable descending sort: `lax.top_k` breaks ties toward the lower index and
+Counterpart of `pose_estimation_tpu/ops/fast.py` (plain form) and of two
+TPU kernels of `pose_estimation_tpu/ops/pallas_fast.py`:
+
+- `fast_select` (K1, `csrc/fast_select.cu`, twin `select_plain`) replaces
+  `fast_select_pallas`: score, NMS, gates, per-cell top-k and subpixel fit
+  in one kernel. It takes widths that are multiples of 16 only; `orb`
+  routes every other width to K3.
+- `fast_score_nms` (K3, `csrc/fast_score_nms.cu`, twin `score_nms_plain`)
+  replaces `fast_score_nms_pallas`: the raw and the NMS-masked score maps;
+  `select_keypoints_batched` then gates and selects in torch.
+
+Each wrapper launches its CUDA kernel on a CUDA tensor and runs its twin
+only on a CPU tensor. The plane top-k stays in torch as a stable
+descending sort: `lax.top_k` breaks ties toward the lower index and
 level-0 scores are integers, so ties are common.
 
-Output contract of both: for each plane, candidates in raster order
+K1's output contract: for each plane, candidates in raster order
 (cell-row, cell-col, k) with C = n_cell_rows * (W / 16) * k_per_cell,
 n_cell_rows = 2 * ceil(H / 32): score [N, C] (invalid -1e9), flat code
 y * W + x [N, C] int32 (invalid 0), subpixel x, y [N, C] (invalid 0).
@@ -90,8 +99,6 @@ def select_plain(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     fallback -> top-k per cell -> subpixel fit. Returns (vals, codes, xs,
     ys), each [N, C], in the module's output contract."""
     n, h, w = stack.shape
-    if w % CELL:
-        raise ValueError(f"width {w} is not a multiple of {CELL}")
     dev = stack.device
     score = fast_score(stack)
     keep = nms3(score)
@@ -161,6 +168,7 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     if stack.dtype != torch.float32 or not stack.is_contiguous():
         raise ValueError("fast_select needs a contiguous float32 stack")
     if w % CELL or len(bounds) != n:
+        # other widths take K3 (`orb.extract_batch`)
         raise ValueError(f"bad shape {tuple(stack.shape)} / {len(bounds)} bounds")
     ncr = -(-h // BAND) * BAND // CELL
     ncx = w // CELL
@@ -200,3 +208,144 @@ def select_keypoints_fused(stack, bounds, th_hi, th_lo, k_max,
     k_max = min(k_max, vals.shape[1])
     g_s, (gx, gy) = plane_topk(vals, (xs, ys), k_max)
     return Keypoints(xy=torch.stack([gx, gy], dim=-1), score=g_s, valid=g_s > NEG / 2)
+
+
+# ---- K3: raw and NMS-masked FAST score maps
+
+HALO = 4   # FAST ring 3 + NMS 1
+
+
+def score_nms_plain(stack: torch.Tensor):
+    """Twin of kernel K3: (raw, masked) [N, H, W] float32 FAST score maps,
+    masked = raw where the 3x3 NMS keeps it, else 0. The edges follow the
+    TPU kernel (`pallas_fast.fast_score_nms_pallas`): rows are clamped to
+    the plane (its edge padding), columns wrap (its roll), ties break in
+    raster order. `fast_score`'s cyclic row shifts would differ near the
+    top and bottom rows."""
+    n, h, w = stack.shape
+    rows = torch.clamp(torch.arange(-HALO, h + HALO, device=stack.device), 0, h - 1)
+    padded = stack[:, rows]                         # [n, h + 8, w], row r <-> y = r - 4
+    center = padded[:, HALO - 1:HALO + h + 1]       # rows y = -1 .. h
+
+    def ring(dy, dx):
+        part = padded[:, HALO - 1 + dy:HALO + h + 1 + dy]
+        return part if dx == 0 else torch.roll(part, -dx, dims=-1)
+
+    diffs = [ring(dy, dx) - center for dy, dx in CIRCLE]
+
+    def arc_min9(ds):
+        m3 = [torch.minimum(torch.minimum(ds[i], ds[(i + 1) % 16]), ds[(i + 2) % 16])
+              for i in range(16)]
+        m9 = [torch.minimum(torch.minimum(m3[i], m3[(i + 3) % 16]), m3[(i + 6) % 16])
+              for i in range(16)]
+        out = m9[0]
+        for i in range(1, 16):
+            out = torch.maximum(out, m9[i])
+        return out
+
+    score = torch.maximum(arc_min9(diffs), arc_min9([-d for d in diffs]))  # [n, h + 2, w]
+    raw = score[:, 1:h + 1]
+    keep = torch.ones_like(raw, dtype=torch.bool)
+    strictly_before = True
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                strictly_before = False
+                continue
+            nb = score[:, 1 + dy:1 + dy + h]
+            if dx:
+                nb = torch.roll(nb, -dx, dims=-1)
+            keep &= (raw > nb) if strictly_before else (raw >= nb)
+    return raw.contiguous(), torch.where(keep, raw, 0.0)
+
+
+def fast_score_nms(stack: torch.Tensor):
+    """Kernel K3: (raw, masked) FAST score maps of a plane stack [N, H, W].
+
+    Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
+    _kernel` (via `fast_score_nms_pallas`). On the H100 it is bound about
+    equally by its bytes (4 read and 8 written per pixel) and by ~200
+    float32 min/max/sub operations per pixel; one block stages a 16 x 128
+    tile with its 4-px halo in shared memory, scores it once and writes
+    both maps. A CUDA tensor launches the kernel (or raises); a CPU tensor
+    runs `score_nms_plain`."""
+    if not stack.is_cuda:
+        return score_nms_plain(stack)
+    if stack.dtype != torch.float32 or not stack.is_contiguous() or stack.ndim != 3:
+        raise ValueError("fast_score_nms needs a contiguous float32 [N, H, W] stack")
+    n, h, w = stack.shape
+    raw = torch.empty_like(stack)
+    masked = torch.empty_like(stack)
+    err = kernels.library().fast_score_nms_launch(
+        stack.data_ptr(), raw.data_ptr(), masked.data_ptr(), n, h, w,
+        torch.cuda.current_stream(stack.device).cuda_stream,
+    )
+    kernels.check(err, "fast_score_nms")
+    fast_score_nms.launches += 1
+    return raw, masked
+
+
+fast_score_nms.launches = 0
+
+
+def _topk_iter(x: torch.Tensor, k: int):
+    """Top-k along the last axis by k (argmax, mask) passes: ties to the
+    lower index, values taken from x."""
+    comb = x.clone()
+    idxs = []
+    for _ in range(k):
+        idx = torch.argmax(comb, dim=-1, keepdim=True)     # first maximum
+        idxs.append(idx)
+        comb.scatter_(-1, idx, float("-inf"))
+    top_i = torch.cat(idxs, dim=-1)
+    return torch.gather(x, -1, top_i), top_i
+
+
+def select_keypoints_batched(score: torch.Tensor, bounds, th_hi: float, th_lo: float,
+                             k_max: int, cell: int = 16, border: int = 19,
+                             k_per_cell: int = 4, pre_nms: bool = False,
+                             raw_score: torch.Tensor | None = None) -> Keypoints:
+    """NMS (or, with pre_nms, a score map already NMS-masked) + per-plane
+    detection border + per-cell threshold fallback + per-cell top-k + plane
+    top-k + subpixel fit on `raw_score` (default `score`). Counterpart of
+    `pose_estimation_tpu/ops/fast.py:select_keypoints_batched`; [N, k_max]
+    fields. H and W are padded to cell multiples with -1e9."""
+    n, h, w = score.shape
+    dev = score.device
+    if len(bounds) != n:
+        raise ValueError(f"{len(bounds)} bounds for {n} planes")
+    keep = (score > 0.0) if pre_nms else nms3(score)
+    lh = torch.tensor([b[0] for b in bounds], device=dev)[:, None, None]
+    lw = torch.tensor([b[1] for b in bounds], device=dev)[:, None, None]
+    ys_ = torch.arange(h, device=dev)[None, :, None]
+    xs_ = torch.arange(w, device=dev)[None, None, :]
+    inb = (ys_ >= border) & (ys_ < lh - border) & (xs_ >= border) & (xs_ < lw - border)
+    s = torch.where(keep & inb, score, NEG)
+
+    hp, wp = -(-h // cell) * cell, -(-w // cell) * cell
+    s = torch.nn.functional.pad(s, (0, wp - w, 0, hp - h), value=NEG)
+    ncy, ncx = hp // cell, wp // cell
+    cells = s.reshape(n, ncy, cell, ncx, cell).permute(0, 1, 3, 2, 4).reshape(
+        n, ncy * ncx, cell * cell)
+    cell_max = cells.amax(dim=2, keepdim=True)
+    eligible = torch.where(cell_max > th_hi, cells > th_hi, cells > th_lo)
+    cand = torch.where(eligible, cells, NEG)
+
+    top_s, top_i = _topk_iter(cand, k_per_cell)              # [n, C, k]
+    cell_id = torch.arange(ncy * ncx, device=dev)[None, :, None]
+    py = ((cell_id // ncx) * cell + top_i // cell).reshape(n, -1)
+    px = ((cell_id % ncx) * cell + top_i % cell).reshape(n, -1)
+    k_max = min(k_max, ncy * ncx * k_per_cell)
+    g_s, (gx, gy) = plane_topk(top_s.reshape(n, -1), (px, py), k_max)
+
+    flat = (score if raw_score is None else raw_score).reshape(n, h * w)
+
+    def sc(yy, xx):
+        yy = yy.clamp(0, h - 1)
+        xx = xx.clamp(0, w - 1)
+        return torch.gather(flat, 1, yy * w + xx)
+
+    s0 = sc(gy, gx)
+    fx = gx.to(score.dtype) + _para(sc(gy, gx - 1), s0, sc(gy, gx + 1))
+    fy = gy.to(score.dtype) + _para(sc(gy - 1, gx), s0, sc(gy + 1, gx))
+    return Keypoints(xy=torch.stack([fx, fy], dim=-1), score=g_s, valid=g_s > NEG / 2)

@@ -3,9 +3,10 @@
 The `.cu` sources are compiled at first use with `nvcc` for `sm_90a` into
 one shared library with a plain C interface, loaded with `ctypes`. The
 library lands in `pose_estimation_tpu_torch/build/` (git-ignored) under a
-name that carries the hash of the sources and flags, so an edited source is
-rebuilt. A failed build raises. Nothing here runs at import time, so the
-CPU-only test environment (no nvcc, no GPU) imports every module.
+name that carries the hash of the sources, the shared header and the
+flags, so an edited source is rebuilt. A failed build raises. Nothing here
+runs at import time, so the CPU-only test environment (no nvcc, no GPU)
+imports every module.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("fast_select.cu", "sample_patches.cu")
+SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu")
+HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
 NVCC_FLAGS = (
@@ -45,7 +47,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -86,6 +88,8 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, p, p, p, i, i, i, i, i, p,
     ]
     lib.sample_patches_launch.restype = i
+    lib.fast_score_nms_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.fast_score_nms_launch.restype = i
     return lib
 
 

@@ -3,10 +3,13 @@
 Counterpart of the kernel path of `pose_estimation_tpu/ops/orb.py:
 extract_batch` (its `fast_backend="pallas"`, `sample_backend="pallas"`
 branch): content-shaped bilinear pyramid products, one level-major plane
-stack, kernel K1 (`fast.fast_select`) plus the plane top-k, then per level
-kernel K2 (`sample.sample_patches`) on the level's own canvas, `atan2` of
-the moments, the pool difference product and the sign. On a CPU tensor the
-two kernels run as their torch twins, with the same semantics.
+stack, detection, then per level kernel K2 (`sample.sample_patches`) on the
+level's own canvas, `atan2` of the moments, the pool difference product and
+the sign. Detection takes kernel K1 (`fast.fast_select`) plus the plane
+top-k when the width is a multiple of 16, and otherwise kernel K3
+(`fast.fast_score_nms`) followed by `fast.select_keypoints_batched`, as
+`orb.py:629-647` does (KITTI's 1242-px frames take K3). On a CPU tensor the kernels run as their torch twins, with
+the same semantics.
 
 The XLA alternatives of the JAX package (sparse IC angle, full-stack blur,
 pool gather) are not ported: the port follows the kernel path everywhere.
@@ -135,10 +138,17 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig, oc: OrbConstants) -> OrbFe
     dev = imgs.device
 
     levels, stack, bounds = plane_stack(imgs, cfg, oc)
-    kps = fast_mod.select_keypoints_fused(
-        stack, bounds, cfg.th_hi, cfg.th_lo, budgets[0],
-        border=EDGE, k_per_cell=cfg.k_per_cell,
-    )
+    if imgs.shape[2] % fast_mod.CELL == 0:
+        kps = fast_mod.select_keypoints_fused(
+            stack, bounds, cfg.th_hi, cfg.th_lo, budgets[0],
+            border=EDGE, k_per_cell=cfg.k_per_cell,
+        )
+    else:
+        raw, masked = fast_mod.fast_score_nms(stack)
+        kps = fast_mod.select_keypoints_batched(
+            masked, bounds, cfg.th_hi, cfg.th_lo, budgets[0], cell=fast_mod.CELL,
+            border=EDGE, k_per_cell=cfg.k_per_cell, pre_nms=True, raw_score=raw,
+        )
 
     xy_l, packed_l = [], []
     for lvl in range(nl):

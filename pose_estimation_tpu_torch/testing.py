@@ -1,14 +1,23 @@
 """Synthetic configurations and a numpy stereo-inertial world.
 
 `synthetic_config` is `pose_estimation_tpu/testing.py:synthetic_config`;
-`StereoInertialSim` and `sim_frames` are the trajectory-family-A renderer and
-IMU synthesizer of `tests/sim.py` (`StereoInertialSim`, `sim_world`) in plain
-numpy. They live here so that the GPU smoke test drives the port without
-importing the JAX package; `tests/test_torch_vio.py` holds the frames and
-IMU chunks equal to `tests/sim.py`'s.
+`sim_config`, `Trajectory` (families A and B), `set_family`,
+`StereoInertialSim` (renderer, IMU synthesizer and the replay `run` that
+feeds a `slam.VisualInertialSLAM`) and `sim_frames` are copies of
+`tests/sim.py` (`sim_config`, `Trajectory`, `set_family`,
+`StereoInertialSim`, `sim_world`) in plain numpy. They live here so that
+the GPU smoke test drives the port without importing the JAX package;
+`tests/test_torch_vio.py` and `tests/test_torch_slam.py` hold the frames
+and IMU equal to `tests/sim.py`'s.
+
+`protocol_world` and `run_errors` set up and score the accuracy protocol
+of `benchmarks/chip_accuracy.py` for `chip_smoke.py` and
+`tools/accuracy_seeds.py`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -51,26 +60,76 @@ def synthetic_config(
     return VIOConfig(**base)
 
 
-def _rot(t: float) -> np.ndarray:
-    """Body-to-world rotation of trajectory family A."""
-    from scipy.spatial.transform import Rotation
+def sim_config(width: int = 320, height: int = 240, **overrides) -> VIOConfig:
+    """The end-to-end simulator's rig (`tests/sim.py:sim_config`): fx = 260
+    with the principal point at the image centre, keyframes at 0.05 rad or
+    0.05 m."""
+    k = np.array([[260.0, 0, width / 2], [0, 260.0, height / 2], [0, 0, 1.0]])
+    base = dict(
+        dataset="euroc", dataset_path="",
+        image_width=width, image_height=height, camera_frequency=10,
+        std_x=1.0, std_y=1.0,
+        k_left=k, dist_left=np.zeros(5), k_right=k.copy(), dist_right=np.zeros(5),
+        r_lr=np.eye(3), t_lr=np.array([-0.11, 0.0, 0.0]),
+        r_cb=np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]]),
+        t_cb=np.array([0.0, 0.0, 0.0]),
+        sampling_rate=200, gyr_noise=1.7e-4, acc_noise=2.0e-3,
+        gyr_walk=1.9e-5, acc_walk=3.0e-3, gravity_magnitude=G,
+        num_features=600, scale_factor=1.2, level_pyramid=4,
+        ini_th_fast=20, min_th_fast=7, match_ratio=3.0, min_match_dist=40.0,
+        max_vertical_pixel_dist=2.0, max_feature_age=8, max_depth=12.0,
+        keyframe_rotation=0.05, keyframe_translation=0.05, max_imu_time=4.0,
+        max_gyr_bias=0.1, max_acc_bias=0.6, sfm_rotation=0.0,
+        sfm_translation=0.0, solve_pnp=0, max_num_iterations=15,
+        prior_factor=1e-5, speed_up=1, max_keypoints=512, max_matches=256,
+        pool_capacity=1024, imu_chunk=32,
+    )
+    base.update(overrides)
+    return VIOConfig(**base)
 
-    rv = np.array([0.12 * np.sin(0.5 * t), 0.10 * np.sin(0.8 * t), 0.08 * t])
-    return Rotation.from_rotvec(rv).as_matrix()
+
+@dataclasses.dataclass
+class Trajectory:
+    """Analytic body trajectory. Family A is a 6-s meander whose yaw drifts
+    at 0.08 rad/s; family B has other harmonics and bounded yaw, so it stays
+    inside the landmark field on 12-20 s horizons."""
+
+    family: str = "A"
+
+    def pos(self, t):
+        if self.family == "B":
+            return np.array([0.12 * np.sin(0.8 * t + 1.0), 0.8 * t,
+                             0.45 * np.cos(0.55 * t) - 0.45])
+        return np.array([0.15 * np.sin(0.9 * t), 0.8 * t, 0.5 * np.sin(0.7 * t)])
+
+    def rot(self, t):
+        """Body-to-world rotation."""
+        from scipy.spatial.transform import Rotation
+
+        if self.family == "B":
+            rv = np.array([0.10 * np.sin(0.6 * t), 0.12 * np.sin(0.45 * t + 0.5),
+                           0.25 * np.sin(0.3 * t)])
+        else:
+            rv = np.array([0.12 * np.sin(0.5 * t), 0.10 * np.sin(0.8 * t), 0.08 * t])
+        return Rotation.from_rotvec(rv).as_matrix()
 
 
-def _pos(t: float) -> np.ndarray:
-    return np.array([0.15 * np.sin(0.9 * t), 0.8 * t, 0.5 * np.sin(0.7 * t)])
+def set_family(sim: "StereoInertialSim", family: str) -> None:
+    """Switch a sim's trajectory family in place (the landmark field stays)."""
+    sim.traj = Trajectory(family=family)
 
 
 class StereoInertialSim:
-    """Landmarks splatted as random 9x9 patches into a moving stereo rig."""
+    """Landmarks splatted as random 9x9 patches into a moving stereo rig,
+    with world gravity on the configuration's dataset-profile axis."""
 
     def __init__(self, cfg: VIOConfig, n_landmarks: int = 400, seed: int = 0,
                  y_max: float = 11.0):
         self.cfg = cfg
         rng = np.random.default_rng(seed)
+        self.traj = Trajectory()
         self.g_w = G * np.asarray(cfg.profile.gravity_dir, np.float64)
+        # y_max must cover the trajectory's y extent (0.8 m/s x duration)
         self.lm = np.stack([
             rng.uniform(2.5, 11.0, n_landmarks),
             rng.uniform(-3.0, y_max, n_landmarks),
@@ -78,26 +137,23 @@ class StereoInertialSim:
         ], axis=1)
         self.patches = rng.uniform(60, 255, size=(n_landmarks, 9, 9))
 
-    rot = staticmethod(_rot)
-    pos = staticmethod(_pos)
-
     def imu_at(self, t, dt=1e-4):
         """(gyro, specific force) in the body frame by finite differences."""
         from scipy.spatial.transform import Rotation
 
-        r0, r1 = _rot(t), _rot(t + dt)
+        r0, r1 = self.traj.rot(t), self.traj.rot(t + dt)
         w_hat = Rotation.from_matrix(r0.T @ r1).as_rotvec() / dt
-        a_w = (_pos(t + dt) - 2 * _pos(t) + _pos(t - dt)) / dt**2
+        a_w = (self.traj.pos(t + dt) - 2 * self.traj.pos(t) + self.traj.pos(t - dt)) / dt**2
         return w_hat, r0.T @ (a_w - self.g_w)
 
     def vel_at(self, t, dt=1e-4):
-        return (_pos(t + dt) - _pos(t - dt)) / (2 * dt)
+        return (self.traj.pos(t + dt) - self.traj.pos(t - dt)) / (2 * dt)
 
     def render(self, t):
         """(left, right) float32 images at time t."""
         cfg = self.cfg
         w, h = cfg.image_width, cfg.image_height
-        R_wb, p_wb = _rot(t), _pos(t)
+        R_wb, p_wb = self.traj.rot(t), self.traj.pos(t)
         imgs = []
         for cam in (0, 1):
             img = np.full((h, w), 20.0, np.float32)
@@ -128,6 +184,84 @@ class StereoInertialSim:
             imgs.append(img)
         return imgs[0], imgs[1]
 
+    def run(self, slam, duration=6.0, frame_hz=10, imu_noise=0.0, seed=1):
+        """Feed `slam` (IMU at the sampling rate, a stereo frame every
+        1/frame_hz s, nanosecond timestamps); returns the true trajectory
+        [N, 4] (ts, x, y, z) at the frames."""
+        from pose_estimation_tpu_torch.slam import SensorType
+
+        nrng = np.random.default_rng(seed)
+        dt_imu = 1.0 / self.cfg.sampling_rate
+        n_imu = int(duration / dt_imu)
+        frame_every = self.cfg.sampling_rate // frame_hz
+        gt = []
+        for k in range(n_imu):
+            t = k * dt_imu
+            ts = int(t * 1e9)
+            w_b, f_b = self.imu_at(t)
+            if imu_noise:
+                w_b = w_b + nrng.normal(0, imu_noise, 3)
+                f_b = f_b + nrng.normal(0, imu_noise * 10, 3)
+            slam.collect_imu_data(SensorType.GYROSCOPE, ts, *w_b)
+            slam.collect_imu_data(SensorType.ACCELEROMETER, ts, *f_b)
+            if k % frame_every == 0:
+                img_l, img_r = self.render(t)
+                slam.process(img_l, img_r, ts)
+                gt.append([ts, *self.traj.pos(t)])
+        return np.array(gt)
+
+
+# The accuracy protocol of `benchmarks/chip_accuracy.py:45-52, 110-158`:
+# family A worlds 0-2 for 6 s with 150 landmarks, family B worlds 0-1 for
+# 12 s with 220, the landmark field reaching y = max(11, 0.8 x duration +
+# 5), keyframes at 0.1 rad or 0.15 m, IMU noise 2.4e-3 drawn with seed
+# world seed + 10. A run passes with ATE < 4 % of path, |ba| < 1.5 and
+# |bg| < 0.01.
+PROTOCOL_RUNS = ("A0", "A1", "A2", "B0", "B1")
+PROTOCOL_IMU_NOISE = 2.4e-3
+GATE_ATE_PCT, GATE_BA, GATE_BG = 4.0, 1.5, 0.01
+
+
+def protocol_world(run: str):
+    """(config, world, duration [s], IMU seed) of protocol run `run`, one
+    of PROTOCOL_RUNS (family letter and world seed)."""
+    family, world_seed = run[0], int(run[1:])
+    duration = 6.0 if family == "A" else 12.0
+    cfg = sim_config(keyframe_rotation=0.1, keyframe_translation=0.15)
+    world = StereoInertialSim(cfg, n_landmarks=150 if family == "A" else 220, seed=world_seed,
+                              y_max=max(11.0, 0.8 * duration + 5.0))
+    set_family(world, family)
+    return cfg, world, duration, world_seed + 10
+
+
+def run_errors(slam, gt) -> dict:
+    """A finished replay against its ground truth `gt` (rows [t, x, y, z]):
+    ATE as % of path, the newest frame's |ba| and |bg|, the aligned error
+    of each matched frame [m] and the distance travelled up to it [m]."""
+    import torch
+
+    from pose_estimation_tpu_torch.io.ate import associate, ate_rmse, umeyama
+
+    path = float(np.linalg.norm(np.diff(gt[:, 1:], axis=0), axis=1).sum())
+    traj = slam.trajectory
+    e, g = associate(traj, gt)
+    _, r, t = umeyama(e, g)
+    win = slam.vio.win
+    return {
+        "ate_pct": ate_rmse(traj, gt) / path * 100.0,
+        "ba": float(torch.linalg.norm(win.ics.ba_i[-1] + win.dba[-1])),
+        "bg": float(torch.linalg.norm(win.ics.bg_i[-1] + win.dbg[-1])),
+        "err": np.linalg.norm((r @ e.T).T + t - g, axis=1),
+        "dist": np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(g, axis=0), axis=1))]),
+    }
+
+
+def within_gates(errors: dict) -> bool:
+    """The protocol's verdict on `run_errors`' result (the state machine
+    must also have ended in OK)."""
+    return (errors["ate_pct"] < GATE_ATE_PCT and errors["ba"] < GATE_BA
+            and errors["bg"] < GATE_BG)
+
 
 def sim_frames(cfg: VIOConfig, n_frames: int, imu_noise: float = 2.4e-3,
                n_landmarks: int = 400, seed: int = 0, t0: float = 0.5):
@@ -157,7 +291,7 @@ def sim_frames(cfg: VIOConfig, n_frames: int, imu_noise: float = 2.4e-3,
 
     def truth(j):
         t = t0 + (j - 1) / hz
-        return _rot(t), _pos(t), sim.vel_at(t)
+        return sim.traj.rot(t), sim.traj.pos(t), sim.vel_at(t)
 
     return frames, gyrs, accs, mask, truth
 

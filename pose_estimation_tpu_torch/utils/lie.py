@@ -1,4 +1,4 @@
-"""SO(3) operations on torch tensors.
+"""SO(3) and SE(3) operations on torch tensors.
 
 Counterpart of `pose_estimation_tpu/utils/lie.py`, with the same formulas in
 the same order so that float32 results agree: rotations are 3x3 matrices,
@@ -147,6 +147,17 @@ def mat_to_quat(r: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix. [..., 4] -> [..., 3, 3]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = (
+        (1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)),
+        (2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)),
+        (2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)),
+    )
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def so3_log(r: torch.Tensor) -> torch.Tensor:
     """Logarithm map SO(3) -> so(3) through the quaternion. [..., 3, 3] -> [..., 3]."""
     q = mat_to_quat(r)
@@ -172,6 +183,11 @@ def right_jacobian(omega: torch.Tensor) -> torch.Tensor:
     return _eye_like(k) - b[..., None, None] * k + c[..., None, None] * k2
 
 
+def left_jacobian(omega: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian, Jl(w) = Jr(-w)."""
+    return right_jacobian(-omega)
+
+
 def right_jacobian_inverse(omega: torch.Tensor) -> torch.Tensor:
     """Inverse right Jacobian of SO(3) with a Taylor branch for small angles."""
     theta2 = torch.sum(omega * omega, dim=-1)
@@ -195,3 +211,35 @@ def right_jacobian_inverse(omega: torch.Tensor) -> torch.Tensor:
 def mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched matrix-vector product. [..., n, k] x [..., k] -> [..., n]."""
     return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
+# ---- SE(3) as a pair (R [..., 3, 3], p [..., 3])
+
+
+def se3_apply(r, p, x):
+    """Apply T = (r, p) to points x [..., 3]."""
+    return mv(r, x) + p
+
+
+def se3_compose(r1, p1, r2, p2):
+    """T1 * T2."""
+    return r1 @ r2, se3_apply(r1, p1, p2)
+
+
+def se3_inverse(r, p):
+    rt = r.transpose(-1, -2)
+    return rt, -mv(rt, p)
+
+
+def se3_exp(xi):
+    """se(3) exp with xi = [rho(3), omega(3)] (translation first)."""
+    rho, omega = xi[..., :3], xi[..., 3:]
+    return so3_exp(omega), mv(left_jacobian(omega), rho)
+
+
+def se3_log(r, p):
+    """Inverse of `se3_exp`: [rho, omega] with rho = Jl^-1(omega) p, and
+    Jl^-1(w) = Jr^-1(-w)."""
+    omega = so3_log(r)
+    rho = mv(right_jacobian_inverse(-omega), p)
+    return torch.cat([rho, omega], dim=-1)
