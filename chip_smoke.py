@@ -5,16 +5,25 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
+It builds the five CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
 checks each against its torch twin at the shapes the main paths give it:
 K1 (FAST select) and K2 (descriptor sampler) at EuRoC scale (752x480
 stereo, 8 levels, 800 features), K3 (FAST score + NMS) at KITTI width
-(1242x375, 8 levels). Then it drives, each with the kernel counts set to 0
-just before and read just after:
+(1242x375, 8 levels), K4 (circular moment maps) on both plane stacks, also
+against the 31x31 convolution that computes the same maps, and K5 (stream
+probe) over its sweep of plane counts, heights and element types. Then it
+drives, each with the kernel counts set to 0 just before and read just
+after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
   the true pose: finite state, non-negative BA cost, tracking and BA alive
   after a 6-frame warm-up, no divergence, K1 and K2 launched;
+- the same 16 frames through the map-based front end (K1 detection, K4
+  moment maps, full-stack blur and pool gather), with 4 seeds of the
+  RANSAC draws: the same checks, but the divergence bound held by at least
+  half of the chains and no chain beyond 2 x distance + 10 m (on this slice
+  a frame that tracks a handful of features moves the pose by metres on
+  either front end); K1 and K4 launched once per frame and K2 never;
 - a small input through the kernel path and the CPU twin path, which must
   agree, and 16 chains at full pyramid depth (384x240, 8 levels) held to
   the JAX package's drift;
@@ -33,6 +42,11 @@ just before and read just after:
   passes must not fall short of the JAX package's measured pass rate
   (fail when, at that rate, so few passes would come with probability
   below 5 %). Seed 0's runs are printed beside the JAX package's record.
+  Two more runs share the workers: world A2 on the map-based front end
+  (K4 launched once per extraction, K2 never) and the KITTI-width rig with
+  `rectify_mode="dense"` (K3 and K2, never K1). Each must reach OK, stay
+  finite, under 2 x distance + 1 m and under 3 x each gate; whether it
+  passes the gates is printed.
 
 Any failure exits non-zero. The second-to-last line is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}. Imports
@@ -42,6 +56,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -57,11 +72,36 @@ K1_TOL_XY = 1e-5       # px: same float32 operations as the twin
 K2_TOL_MOM = 1e-5      # of the largest moment: float32 sums in another order
 K2_TOL_VAL = 1e-3      # intensity, on >= 99.9 % of samples (a rounded sample
 K2_MIN_CLOSE = 0.999   # point can flip at .5 when the rotation rounds apart)
+# K4 against its twin, of the plane's largest |moment|: the twin's prefix
+# sums run over whole rows and reach ~1e7 (float32 spacing 1-2) where the
+# windowed differences are ~1e3-1e5, and CUDA's cumsum is a block scan whose
+# partial sums do not share their rounding; the kernel's tile-local sums
+# stay below ~1e6. So the twin's rounding sets this tolerance, and the
+# kernel is held much closer to the twin run in float64.
+K4_TOL_MOM = 1e-3
+K4_TOL_MOM_F64 = 2e-5
+K4_TOL_ANGLE = 2e-3    # rad, at detected keypoints, from the float64 twin's angle
+K4_MIN_MOMENT = 1e-3   # keypoints with a shorter moment vector (of the plane's
+#                        longest) are skipped: atan2 is ill conditioned there
+# float32 instructions per pixel of the moment maps in prefix-sum form: 2
+# prefix adds and the x-weight multiply, for each of the 10 distinct radii
+# a box difference, a ramp difference and its multiply-add (30), and the
+# 31-row accumulation (31 adds, 30 multiply-adds)
+K4_OPS_PER_PX = 3 + 30 + 61
 # EuRoC run: a divergence guard, not an accuracy gate. The seeded slice at
 # this scale tracks 5-35 features per frame in both packages and drifts by
 # decimetres to metres (PERF.md); a run that diverges (an indefinite
 # marginalization prior ran LM to kilometres) exceeds this at once.
 DIVERGED_PER_M, DIVERGED_M = 2.0, 1.0   # error bound: 2 x distance travelled + 1 m
+# Whether a chain of this slice stays under that bound depends on its RANSAC
+# draws: a frame that tracks 1-4 features moves the pose by metres on any
+# front end (over generator seeds 0-7 on the card, 6 of 8 chains hold it on
+# the kernel path, 6 of 8 on the map front end with K4, 8 of 8 with the
+# sparse angles; PERF.md). The kernel path is held to it at seed 0, as
+# before. The map front end runs MAP_SEEDS: at least half of its chains
+# must hold the bound, and none may run away beyond 2 x distance + 10 m.
+MAP_SEEDS = (0, 1, 2, 3)
+RUNAWAY_M = 10.0
 # Drift at full pyramid depth (384x240, 8 levels, 400 features, 8 frames
 # from the seeded window): the JAX package's median final position error
 # over 16 RANSAC seeds (measured on a CPU, sampler in interpret mode, keys
@@ -154,21 +194,23 @@ def kitti_config(**extra):
                       acc_walk=3.0e-3 * sdt / G, **extra)
 
 
+def wrappers() -> dict:
+    """The kernels' wrappers by name; each counts its launches."""
+    from pose_estimation_tpu_torch.ops import fast, moments, probe, sample
+
+    return {"fast_select": fast.fast_select, "sample_patches": sample.sample_patches,
+            "fast_score_nms": fast.fast_score_nms, "moment_maps": moments.moment_maps,
+            "stream_probe": probe.stream_probe}
+
+
 def counters() -> dict:
     """The kernels' launch counts."""
-    from pose_estimation_tpu_torch.ops import fast, sample
-
-    return {"fast_select": fast.fast_select.launches,
-            "sample_patches": sample.sample_patches.launches,
-            "fast_score_nms": fast.fast_score_nms.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def zero_counters() -> None:
-    from pose_estimation_tpu_torch.ops import fast, sample
-
-    fast.fast_select.launches = 0
-    sample.sample_patches.launches = 0
-    fast.fast_score_nms.launches = 0
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 @contextlib.contextmanager
@@ -207,20 +249,36 @@ def count_prior_clip():
     stats.update(calls=len(r), negative=sum(x < 0 for x in r), worst_ratio=min(r, default=0.0))
 
 
-def run_state_machine(cfg, world, duration, imu_seed, seed, dev):
+# The map-based front end, selected as the JAX package selects it: on the
+# static configuration after construction. Detection stays on K1 or K3.
+MAP_FRONT = dict(sample_backend="xla", moments_backend="pallas")
+
+
+def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=None):
     """Replay `world` through the port's VisualInertialSLAM(seed=seed) on
-    the card. Returns (slam, ground truth, per-OK-frame records). Each OK
-    frame's record holds its host ms (to a synchronize), the kernel
-    launches it made and its metrics (device tensors, read after the run)."""
+    the card, with `orb_replace` applied to its static ORB configuration.
+    Returns (slam, ground truth, per-OK-frame records, extractions). Each
+    OK frame's record holds its host ms (to a synchronize), the kernel
+    launches it made and its metrics (device tensors, read after the run);
+    `extractions` counts the calls of `orb.extract_batch`."""
     import torch
 
     from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.ops import orb
     from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
     from pose_estimation_tpu_torch.testing import PROTOCOL_IMU_NOISE
 
     slam = VisualInertialSLAM(cfg, seed=seed, device=dev)
+    if orb_replace:
+        slam.static = dataclasses.replace(slam.static,
+                                          orb=slam.static.orb._replace(**orb_replace))
     frames = []
-    step, process = vio.ok_step, slam.process
+    extractions = [0]
+    step, process, extract = vio.ok_step, slam.process, orb.extract_batch
+
+    def counted_extract(*args, **kwargs):
+        extractions[0] += 1
+        return extract(*args, **kwargs)
 
     def counted_step(*args, **kwargs):
         before = counters()
@@ -240,31 +298,43 @@ def run_state_machine(cfg, world, duration, imu_seed, seed, dev):
         return out
 
     vio.ok_step = counted_step
+    orb.extract_batch = counted_extract
     slam.process = timed_process
     try:
         gt = world.run(slam, duration=duration, imu_noise=PROTOCOL_IMU_NOISE, seed=imu_seed)
     finally:
         vio.ok_step = step
-    return slam, gt, frames
+        orb.extract_batch = extract
+    return slam, gt, frames, extractions[0]
 
 
 def protocol_worker(job):
-    """One run of the accuracy protocol in a worker process: (run, seed of
-    the draws, device) -> its record, checked by the caller."""
+    """One run of the state machine in a worker process: (run, seed of the
+    draws, device, front end) -> its record, checked by the caller. `run`
+    names a world of the accuracy protocol, or "KITTI-dense": the
+    KITTI-width rig with the frames remapped before detection. The front
+    end is "kernel" or "map"."""
     import torch
 
-    from pose_estimation_tpu_torch.testing import protocol_world, run_errors, within_gates
+    from pose_estimation_tpu_torch.testing import (StereoInertialSim, protocol_world,
+                                                   run_errors, within_gates)
 
-    run, seed, device = job
-    cfg, world, duration, imu_seed = protocol_world(run)
+    run, seed, device, front = job
+    if run == "KITTI-dense":
+        cfg = kitti_config(rectify_mode="dense")
+        world, duration, imu_seed = StereoInertialSim(cfg, n_landmarks=150, seed=0), 6.0, 10
+    else:
+        cfg, world, duration, imu_seed = protocol_world(run)
     t0 = time.perf_counter()
     zero_counters()
     with count_prior_clip() as clip:
-        slam, gt, frames = run_state_machine(cfg, world, duration, imu_seed, seed,
-                                             torch.device(device))
+        slam, gt, frames, extractions = run_state_machine(
+            cfg, world, duration, imu_seed, seed, torch.device(device),
+            MAP_FRONT if front == "map" else None)
     launches = counters()
     e = run_errors(slam, gt)
-    return {"run": run, "seed": seed, "state": slam.state.name, "ate_pct": e["ate_pct"],
+    return {"run": run, "seed": seed, "front": front, "extractions": extractions,
+            "state": slam.state.name, "ate_pct": e["ate_pct"],
             "ba": e["ba"], "bg": e["bg"], "pass": slam.state.name == "OK" and within_gates(e),
             "finite": bool(np.isfinite(slam.trajectory).all()),
             "worst_err_m": float(e["err"].max()),
@@ -293,7 +363,7 @@ def main() -> None:
 
     from pose_estimation_tpu_torch.camera import CameraModel
     from pose_estimation_tpu_torch.models import vio
-    from pose_estimation_tpu_torch.ops import fast, kernels, orb, sample
+    from pose_estimation_tpu_torch.ops import fast, kernels, moments, orb, probe, sample
     from pose_estimation_tpu_torch.slam import State
     from pose_estimation_tpu_torch.testing import (GATE_ATE_PCT, GATE_BA, GATE_BG,
                                                    StereoInertialSim, run_errors,
@@ -419,7 +489,7 @@ def main() -> None:
     kcfg = kitti_config()
     kconsts, kstatic = vio.build_constants(kcfg, CameraModel.from_config(kcfg), dev)
     kimgs = torch.from_numpy(np.stack(StereoInertialSim(kcfg, n_landmarks=150).render(1.0)))
-    _, kstack, _ = orb.plane_stack(kimgs.to(dev), kstatic.orb, kconsts.orb)
+    _, kstack, kbounds = orb.plane_stack(kimgs.to(dev), kstatic.orb, kconsts.orb)
     kraw, kmasked = fast.fast_score_nms(kstack)
     praw, pmasked = fast.score_nms_plain(kstack)
     torch.cuda.synchronize()
@@ -435,54 +505,198 @@ def main() -> None:
           f"({int((pmasked > 0).sum())} NMS maxima); kernel {k3_ms:.4f} ms, "
           f"plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
 
-    # ---- phase 4: the frame step over the sim, from the true start pose
-    state = seeded_state(static, truth, dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    # K4 on both plane stacks: against its twin in float32 and in float64,
+    # at the angles of the detected keypoints, and beside the one PyTorch
+    # call that computes the same maps, a 2-channel 31x31 convolution of the
+    # zero-meaned stack with the circular moment masks (TF32 off, zero
+    # padding: the same function on the whole map)
+    d = torch.arange(-moments.PATCH_R, moments.PATCH_R + 1, device=dev, dtype=torch.float32)
+    circle = (d[:, None] ** 2 + d[None, :] ** 2 <= moments.PATCH_R ** 2).to(torch.float32)
+    masks = torch.stack([circle * d[None, :], circle * d[:, None]])[:, None]   # [2, 1, 31, 31]
+
+    def conv_moments(st):
+        return torch.nn.functional.conv2d(moments.zero_mean(st)[:, None], masks,
+                                          padding=moments.PATCH_R)
+
+    def rel_err(a, b):
+        """max |a - b| over the largest |b| of its plane, worst plane."""
+        scale = b.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+        return float(((a - b).abs() / scale).max())
+
+    kkps = orb.detect(kstack, kbounds, kstatic.orb, orb.level_budgets(kstatic.orb)[0])
+    k4 = {}
+    for name, st, kp in (("euroc", stack, kps), ("kitti", kstack, kkps)):
+        n, h, w = st.shape
+        g10, g01 = moments.moment_maps(st)
+        r10, r01 = moments.moment_maps_plain(st)
+        d10, d01 = moments.moment_maps_plain(st.double())
+        lib = conv_moments(st)
+        torch.cuda.synchronize()
+        err = max(rel_err(g10, r10), rel_err(g01, r01))
+        err64 = max(rel_err(g10.double(), d10), rel_err(g01.double(), d01))
+        twin64 = max(rel_err(r10.double(), d10), rel_err(r01.double(), d01))
+        lib_err = max(rel_err(lib[:, 0], r10), rel_err(lib[:, 1], r01))
+        if err > K4_TOL_MOM:
+            fail(f"moment_maps ({name}): {err:.3g} of the largest |moment| from the twin "
+                 f"> {K4_TOL_MOM}")
+        if err64 > K4_TOL_MOM_F64:
+            fail(f"moment_maps ({name}): {err64:.3g} of the largest |moment| from the "
+                 f"float64 twin > {K4_TOL_MOM_F64}")
+        if lib_err > K4_TOL_MOM:
+            fail(f"moment_maps ({name}): the convolution is {lib_err:.3g} from the twin")
+        xy = kp.xy.reshape(-1, 2)
+        base = (torch.arange(n, device=dev) * (h * w)).repeat_interleave(kp.xy.shape[1])
+        # angles at the detected keypoints against those of the float64
+        # twin: the kernel's (held to the tolerance), and for the record
+        # the float32 twin's and the sparse form's, whose whole-row prefix
+        # sums lose more on the card than the tolerance allows
+        idx = base + torch.round(xy[:, 1]).long().clamp(0, h - 1) * w \
+            + torch.round(xy[:, 0]).long().clamp(0, w - 1)
+        mag = torch.hypot(d10, d01)
+        longest = mag.amax(dim=(1, 2)).repeat_interleave(kp.xy.shape[1])
+        keep = kp.valid.reshape(-1) & (mag.reshape(-1)[idx] >= K4_MIN_MOMENT * longest)
+        ang64 = moments.ic_angle_integral(d10.reshape(-1), d01.reshape(-1), base, xy, h, w)
+
+        def ang_off(ang):
+            dang = torch.remainder(ang.double() - ang64 + math.pi, 2 * math.pi) - math.pi
+            return float(dang[keep].abs().max())
+
+        ang_err = ang_off(moments.ic_angle_integral(g10.reshape(-1), g01.reshape(-1),
+                                                    base, xy, h, w))
+        ang_twin = ang_off(moments.ic_angle_integral(r10.reshape(-1), r01.reshape(-1),
+                                                     base, xy, h, w))
+        ang_sparse = ang_off(orb.ic_angle_sparse(st, base, xy))
+        if ang_err > K4_TOL_ANGLE:
+            fail(f"moment_maps ({name}): angle error {ang_err:.3g} rad > {K4_TOL_ANGLE}")
+        ms = cuda_ms(lambda: moments.moment_maps(st))
+        plain_ms = cuda_ms(lambda: moments.moment_maps_plain(st), reps=5, warm=1)
+        lib_ms = cuda_ms(lambda: conv_moments(st), reps=5, warm=1)
+        # bytes: the stack read once, the two maps written once
+        b_ms, b_by = bound(st.numel() * 12, st.numel() * K4_OPS_PER_PX)
+        k4[name] = dict(err=float(torch.maximum((g10 - r10).abs().max(),
+                                                (g01 - r01).abs().max())), ms=ms, plain_ms=plain_ms,
+                        lib_ms=lib_ms, bound=b_ms, by=b_by, angle_err=ang_err,
+                        twin_angle_err=ang_twin, sparse_angle_err=ang_sparse)
+        print(f"K4 moment_maps [{tuple(st.shape)}]: {err:.3g} of the largest |moment| from "
+              f"the twin (tolerance {K4_TOL_MOM}), {err64:.3g} from the twin in float64 "
+              f"(the float32 twin: {twin64:.3g}), conv2d {lib_err:.3g} from the twin; "
+              f"angles at {int(keep.sum())} of {int(kp.valid.sum())} keypoints within "
+              f"{ang_err:.3g} rad of the float64 twin's (the float32 twin {ang_twin:.3g}, "
+              f"the sparse form {ang_sparse:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"conv2d {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del g10, g01, r10, r01, d10, d01, lib
+
+    # K5: the probe's sweep is its path. Every entry's output is held
+    # exactly equal to the twin's inside `sweep`; the largest entry is then
+    # run once more here for the error, the twin's time and the bound.
+    zero_counters()
+    probe_rows = probe.sweep(dev)
+    probe_launches = counters()["stream_probe"]
+    for row in probe_rows:
+        print(f"K5 stream_probe planes={row['planes']:4d} h={row['h']:3d} {row['dtype']:9s} "
+              f"{row['mbytes']:7.1f} MB, {row['programs']} blocks: {row['ms']:.4f} ms/call "
+              f"({row['us_per_block']:.3f} us/block, {row['gbytes_per_s']:.1f} GB/s)")
+    big = max(probe_rows, key=lambda row: row["mbytes"])
+    pstack = torch.rand((big["planes"], big["h"], probe.WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)) * 255
+    ppp = torch.arange(big["planes"], dtype=torch.int32, device=dev).repeat_interleave(
+        probe.PROGS_PER_PLANE)
+    pout = probe.stream_probe(pstack, ppp)
+    k5_err = float((pout - probe.stream_probe_plain(pstack, ppp)).abs().max())
+    if k5_err != 0.0:
+        fail(f"stream_probe: {k5_err} from the twin (must be exact)")
+    k5_ms = big["ms"]
+    k5_plain_ms = cuda_ms(lambda: probe.stream_probe_plain(pstack, ppp), reps=5, warm=1)
+    # bytes: each distinct plane and index read once, the tiles written
+    # once; one multiply per output element
+    k5_bound, k5_by = bound(pstack.numel() * 4 + ppp.numel() * 4 + pout.numel() * 4,
+                            pout.numel())
+    print(f"K5 stream_probe [{tuple(pstack.shape)}], {ppp.numel()} blocks: exact; "
+          f"kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms "
+          f"({k5_by}); {probe_launches} launches in the sweep")
+    del pstack, pout
+
+    # ---- phase 4: the frame step over the sim, from the true start pose,
+    # on the kernel path and on the map-based front end
     inputs = [
         tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
               for a in (frames[i][0], frames[i][1], gyrs[i], accs[i], mask))
         for i in range(N_FRAMES)
     ]
-    torch.cuda.synchronize()
 
-    zero_counters()
-    metrics = []
-    t_start = t_warm = time.perf_counter()
-    for i in range(N_FRAMES):
-        if i == WARMUP:
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter()
-        state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    launches = counters()
-    ms_frame = (t_end - t_warm) * 1e3 / (N_FRAMES - WARMUP)
-    print(f"ok_step: {N_FRAMES} frames in {t_end - t_start:.2f} s; chained "
-          f"{ms_frame:.2f} ms/frame over frames {WARMUP}-{N_FRAMES - 1}; launches {launches}")
+    def run_chain(label, static, seed=0):
+        """N_FRAMES chained ok_steps from the seeded window, the RANSAC
+        draws from `seed`. Returns (launches, ms per frame after the
+        warm-up, the largest error in m beyond DIVERGED_PER_M x distance)."""
+        state = seeded_state(static, truth, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        zero_counters()
+        metrics = []
+        t_start = t_warm = time.perf_counter()
+        for i in range(N_FRAMES):
+            if i == WARMUP:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = counters()
+        ms_frame = (t_end - t_warm) * 1e3 / (N_FRAMES - WARMUP)
+        print(f"{label}: {N_FRAMES} frames in {t_end - t_start:.2f} s; chained "
+              f"{ms_frame:.2f} ms/frame over frames {WARMUP}-{N_FRAMES - 1}; "
+              f"launches {launches}")
+        dist, excess = 0.0, -math.inf
+        for i, m in enumerate(metrics):
+            dist += float(np.linalg.norm(truth(i + 1)[1] - truth(i)[1]))
+            err = float(np.linalg.norm(m["rec_p"].cpu().numpy() - truth(i + 1)[1]))
+            excess = max(excess, err - DIVERGED_PER_M * dist)
+            print(f"  frame {i:2d}: stereo {int(m['n_stereo']):4d} "
+                  f"tracked {int(m['n_tracked']):4d} "
+                  f"ba_iters {int(m['ba_iters']):2d} kf {int(m['is_keyframe'])} "
+                  f"pool {int(m['pool_size']):4d} |p - p_true| {err:.4f} m "
+                  f"(travelled {dist:.3f} m)")
+            if i >= WARMUP and (int(m["n_tracked"]) <= 0 or int(m["ba_iters"]) <= 0):
+                fail(f"{label} frame {i}: tracking or BA dead after the warm-up")
+            if not float(m["ba_cost"]) >= 0.0:
+                fail(f"{label} frame {i}: BA cost {float(m['ba_cost'])} is negative "
+                     "or not finite")
+            if not err <= DIVERGED_PER_M * dist + RUNAWAY_M:
+                fail(f"{label} frame {i}: ran away, {err:.3f} m from the truth "
+                     f"after {dist:.3f} m")
+        leaves = [t for t in (*state.win[:5], *state.win.ics, state.pool.pos, *state.preint)
+                  if t.is_floating_point()]
+        if not all(bool(torch.isfinite(t).all()) for t in leaves):
+            fail(f"{label}: non-finite state")
+        return launches, ms_frame, excess
 
-    dist = 0.0
-    for i, m in enumerate(metrics):
-        dist += float(np.linalg.norm(truth(i + 1)[1] - truth(i)[1]))
-        err = float(np.linalg.norm(m["rec_p"].cpu().numpy() - truth(i + 1)[1]))
-        print(f"  frame {i:2d}: stereo {int(m['n_stereo']):4d} tracked {int(m['n_tracked']):4d} "
-              f"ba_iters {int(m['ba_iters']):2d} kf {int(m['is_keyframe'])} "
-              f"pool {int(m['pool_size']):4d} |p - p_true| {err:.4f} m "
-              f"(travelled {dist:.3f} m)")
-        if i >= WARMUP and (int(m["n_tracked"]) <= 0 or int(m["ba_iters"]) <= 0):
-            fail(f"frame {i}: tracking or BA dead after the warm-up")
-        if not float(m["ba_cost"]) >= 0.0:
-            fail(f"frame {i}: BA cost {float(m['ba_cost'])} is negative or not finite")
-        if err > DIVERGED_PER_M * dist + DIVERGED_M:
-            fail(f"frame {i}: diverged, {err:.3f} m from the truth after {dist:.3f} m")
-    leaves = [t for t in (*state.win[:5], *state.win.ics, state.pool.pos, *state.preint)
-              if t.is_floating_point()]
-    if not all(bool(torch.isfinite(t).all()) for t in leaves):
-        fail("non-finite state")
+    launches, ms_frame, excess = run_chain("ok_step", static)
+    if excess > DIVERGED_M:
+        fail(f"ok_step: diverged, {excess:.3f} m beyond {DIVERGED_PER_M} x the distance")
     if min(launches["fast_select"], launches["sample_patches"]) <= 0:
         fail(f"a kernel of the path was not launched by ok_step: {launches}")
-    if launches["fast_score_nms"]:
-        fail(f"ok_step at a width divisible by 16 took K3's route: {launches}")
+    if launches["fast_score_nms"] or launches["moment_maps"]:
+        fail(f"ok_step on the kernel path at a width divisible by 16 launched K3 or K4: "
+             f"{launches}")
+    map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
+    map_chains = [run_chain(f"ok_step, map front end, seed {seed}", map_static, seed)
+                  for seed in MAP_SEEDS]
+    for chain_launches, _, _ in map_chains:
+        if (chain_launches["fast_select"], chain_launches["moment_maps"]) \
+                != (N_FRAMES, N_FRAMES) \
+                or chain_launches["sample_patches"] or chain_launches["fast_score_nms"]:
+            fail(f"the map front end must launch K1 and K4 once per frame and K2 and K3 "
+                 f"never: {chain_launches}")
+    map_launches, map_ms_frame, _ = map_chains[0]
+    map_excess = [x for _, _, x in map_chains]
+    map_held = sum(x <= DIVERGED_M for x in map_excess)
+    print(f"map front end: {map_held} of {len(MAP_SEEDS)} chains within {DIVERGED_PER_M} x "
+          f"distance + {DIVERGED_M} m (largest excess per chain, m: "
+          f"{[round(x, 3) for x in map_excess]}); seed 0 {map_ms_frame:.2f} ms/frame beside "
+          f"the kernel path's {ms_frame:.2f}")
+    if 2 * map_held < len(MAP_SEEDS):
+        fail(f"map front end: only {map_held} of {len(MAP_SEEDS)} chains hold the bound")
 
     # ---- phase 5: the kernel path against the CPU twin path on a small
     # input. The CPU path is the one tests/test_torch_vio.py holds to the
@@ -546,7 +760,7 @@ def main() -> None:
     zero_counters()
     t0 = time.perf_counter()
     with count_prior_clip() as kitti_clip:
-        kslam, kgt, kframes = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
+        kslam, kgt, kframes, _ = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
     kitti_launches = counters()
     k_wall = time.perf_counter() - t0
     if kslam.state != State.OK or not kframes:
@@ -577,8 +791,9 @@ def main() -> None:
 
     # ---- phase 8: the accuracy protocol (benchmarks/chip_accuracy.py), its
     # runs in worker processes that share the card, the longest first
-    jobs = [(run, 0, "cuda") for run in HARD_RUNS] + [(run, s, "cuda") for run in RATE_RUNS
-                                                      for s in RATE_SEEDS]
+    jobs = ([(run, 0, "cuda", "kernel") for run in HARD_RUNS]
+            + [("KITTI-dense", 0, "cuda", "kernel"), ("A2", 0, "cuda", "map")]
+            + [(run, s, "cuda", "kernel") for run in RATE_RUNS for s in RATE_SEEDS])
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(PROTOCOL_WORKERS) as pool:
@@ -591,25 +806,46 @@ def main() -> None:
     print(f"accuracy protocol: {len(jobs)} runs in {PROTOCOL_WORKERS} worker processes, "
           f"{time.perf_counter() - t0:.1f} s")
     for r in results:
-        name = f"{r['run']} seed {r['seed']}"
+        name = f"{r['run']} seed {r['seed']}" + (" (map front end)" if r["front"] == "map"
+                                                  else "")
         if r["state"] != "OK" or not r["ok_frames"]:
             fail(f"accuracy {name}: the state machine ended in {r['state']} "
                  f"after {r['ok_frames']} OK frames")
         if not r["finite"] or r["over_divergence_m"] > DIVERGED_M:
             fail(f"accuracy {name}: diverged (worst aligned error {r['worst_err_m']:.3f} m)")
         n = r["launches"]
-        if n["fast_select"] <= 0 or n["sample_patches"] <= 0 or n["fast_score_nms"]:
-            fail(f"accuracy {name}: launches {n} (K1 and K2 must launch, K3 not)")
+        if r["front"] == "map":
+            if (n["moment_maps"], n["fast_select"]) != (r["extractions"], r["extractions"]) \
+                    or n["sample_patches"] or n["fast_score_nms"]:
+                fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
+                     "(K1 and K4 once each, K2 and K3 never)")
+        elif r["run"] == "KITTI-dense":
+            if n["fast_score_nms"] != r["extractions"] or n["sample_patches"] <= 0 \
+                    or n["fast_select"] or n["moment_maps"]:
+                fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
+                     "(K3 once each and K2, K1 and K4 never)")
+        elif n["fast_select"] <= 0 or n["sample_patches"] <= 0 or n["fast_score_nms"] \
+                or n["moment_maps"]:
+            fail(f"accuracy {name}: launches {n} (K1 and K2 must launch, K3 and K4 not)")
         line = (f"accuracy {name}: ATE {r['ate_pct']:.3f} % of path, |ba| {r['ba']:.4f}, "
                 f"|bg| {r['bg']:.5f} -> {'pass' if r['pass'] else 'miss'}; "
                 f"{r['ok_frames']} OK frames, {r['ms_per_ok_frame']:.2f} ms each "
                 f"({PROTOCOL_WORKERS} processes share the card); marginalization clip "
                 f"{r['prior_clip']}; {r['seconds']:.1f} s")
-        if r["seed"] == 0:
+        if r["front"] == "map" or r["run"] == "KITTI-dense":
+            line += f"; {r['extractions']} extractions, launches {n}"
+        elif r["seed"] == 0:
             j_ate, j_ba, j_bg = JAX_RECORD[r["run"]]
             line += (f"; the JAX package on a TPU (CHIP_ACCURACY_r05): ATE {j_ate} %, "
                      f"|ba| {j_ba}, |bg| {j_bg}")
         print(line)
+    extra = [r for r in results if r["front"] == "map" or r["run"] == "KITTI-dense"]
+    results = [r for r in results if r not in extra]
+    for r in extra:     # held to 3 x the gates; the gate verdict is printed above
+        if not (r["ate_pct"] < RUNAWAY * GATE_ATE_PCT and r["ba"] < RUNAWAY * GATE_BA
+                and r["bg"] < RUNAWAY * GATE_BG):
+            fail(f"accuracy {r['run']} ({r['front']} front end): ATE {r['ate_pct']:.3f} %, "
+                 f"|ba| {r['ba']:.4f}, |bg| {r['bg']:.5f} beyond {RUNAWAY} x the gates")
     for r in results:
         if r["run"] in HARD_RUNS and not r["pass"]:
             fail(f"accuracy {r['run']} seed 0: ATE {r['ate_pct']:.3f} %, |ba| {r['ba']:.4f}, "
@@ -636,8 +872,8 @@ def main() -> None:
     if loaded:
         fail(f"the run imported JAX or the JAX package: {loaded[:5]}")
 
-    # no single PyTorch call computes any of the three functions, so none
-    # has a library time
+    # K4 alone has a library time: one conv2d computes its maps. No single
+    # PyTorch call computes what K1, K2, K3 or K5 computes.
     summary = {"kernels": [
         {"name": "fast_select", "route": "cuda",
          "source": "pose_estimation_tpu_torch/csrc/fast_select.cu",
@@ -657,7 +893,21 @@ def main() -> None:
          "launches": kitti_launches["fast_score_nms"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          "library_ms": None},
-    ], "ok_step_ms_per_frame": ms_frame, "kitti_ms_per_ok_frame": kitti_ms}
+        {"name": "moment_maps", "route": "cuda",
+         "source": "pose_estimation_tpu_torch/csrc/moment_maps.cu",
+         "replaces": "pose_estimation_tpu/ops/pallas_fast.py:518",
+         "launches": map_launches["moment_maps"], "max_abs_err": k4["euroc"]["err"],
+         "ms": k4["euroc"]["ms"], "plain_ms": k4["euroc"]["plain_ms"],
+         "bound_ms": k4["euroc"]["bound"], "bound_by": k4["euroc"]["by"],
+         "library_ms": k4["euroc"]["lib_ms"], "kitti_width": k4["kitti"]},
+        {"name": "stream_probe", "route": "cuda",
+         "source": "pose_estimation_tpu_torch/csrc/stream_probe.cu",
+         "replaces": "benchmarks/launch_overhead_exp.py:37",
+         "launches": probe_launches, "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+         "library_ms": None},
+    ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
+        "kitti_ms_per_ok_frame": kitti_ms}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """Stereo camera model: Bouguet rectification on the host, in numpy float64.
 
 The set-up-time geometry of `pose_estimation_tpu/camera.py`, kept in the
-port so that the port imports nothing of the JAX package. Only what the
-sparse rectify mode needs is here: the rectifying rotations and projections
-and the body-camera extrinsics. The dense undistort/rectify maps (dense
-mode, `remap_bilinear`) are not ported yet. `tests/test_torch_geometry.py`
-holds this model equal to the JAX package's.
+port so that the port imports nothing of the JAX package: the rectifying
+rotations and projections, the body-camera extrinsics and the dense
+undistort/rectify sampling maps of the dense rectify mode
+(`ops.remap.remap_bilinear`). `tests/test_torch_geometry.py` and
+`tests/test_torch_remap.py` hold this model equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -36,6 +36,16 @@ def _rodrigues(r_or_R):
         / (2 * np.sin(th))
     )
     return w * th
+
+
+def _distort(x, y, dist):
+    """Plumb-bob distortion of normalized coordinates."""
+    k1, k2, p1, p2, k3 = (list(dist) + [0.0] * 5)[:5]
+    r2 = x * x + y * y
+    radial = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return xd, yd
 
 
 def undistort_points(pts, K, dist, R=None, P=None, iters=5):
@@ -153,15 +163,37 @@ def stereo_rectify(K1, D1, K2, D2, size, R, T, alpha=0.0):
     return R1, R2, P1, P2
 
 
+def undistort_rectify_map(K, dist, R, P, size):
+    """cv::initUndistortRectifyMap: for each rectified pixel, where to
+    sample the raw image. Returns [H, W, 2] float32 (x, y)."""
+    K = np.asarray(K, np.float64)
+    P = np.asarray(P, np.float64)
+    R = np.asarray(R, np.float64)
+    nx, ny = size
+    u, v = np.meshgrid(np.arange(nx, dtype=np.float64), np.arange(ny, dtype=np.float64))
+    x = (u - P[0, 2]) / P[0, 0]
+    y = (v - P[1, 2]) / P[1, 1]
+    iR = np.linalg.inv(R)
+    X = iR[0, 0] * x + iR[0, 1] * y + iR[0, 2]
+    Y = iR[1, 0] * x + iR[1, 1] * y + iR[1, 2]
+    W = iR[2, 0] * x + iR[2, 1] * y + iR[2, 2]
+    xd, yd = _distort(X / W, Y / W, np.ravel(dist))
+    map_x = xd * K[0, 0] + K[0, 2]
+    map_y = yd * K[1, 1] + K[1, 2]
+    return np.stack([map_x, map_y], axis=-1).astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class CameraModel:
-    """Rectified-camera constants of the sparse rectify mode."""
+    """Rectified-camera constants."""
 
     image_size: tuple[int, int]        # (width, height)
     R1: np.ndarray
     R2: np.ndarray
     P1: np.ndarray                     # 3x4 rectified projection, left
     P2: np.ndarray                     # 3x4 rectified projection, right
+    map_left: np.ndarray               # [H, W, 2] float32 sampling map
+    map_right: np.ndarray
     R_cb: np.ndarray                   # body->camera rotation
     p_cb: np.ndarray
     std_x: float
@@ -177,6 +209,8 @@ class CameraModel:
         u, _, vt = np.linalg.svd(np.asarray(cfg.r_cb, np.float64))
         return cls(
             image_size=size, R1=R1, R2=R2, P1=P1, P2=P2,
+            map_left=undistort_rectify_map(cfg.k_left, cfg.dist_left, R1, P1, size),
+            map_right=undistort_rectify_map(cfg.k_right, cfg.dist_right, R2, P2, size),
             R_cb=u @ vt, p_cb=np.asarray(cfg.t_cb, np.float64),
             std_x=cfg.std_x, std_y=cfg.std_y,
         )

@@ -8,8 +8,10 @@ Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
 `lax.cond` branches that are cheap run both sides and select on the
 device; the three heavy ones (BA, the marginalization, the pool update)
 are Python branches, each costing one host sync per frame. The front end
-always follows the JAX package's kernel path; on a CUDA device it launches
-the CUDA kernels, on a CPU device their torch twins.
+follows the JAX package's kernel path unless the configuration asks for the
+map path (`sample_backend="xla"`) or the plain detection
+(`fast_backend="xla"`); on a CUDA device it launches the CUDA kernels, on a
+CPU device their torch twins.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _span = torch.profiler.record_function
 class VIOConstants(NamedTuple):
     """Device-resident constants of the pipeline."""
 
+    map_l: torch.Tensor     # [H, W, 2] dense rectification sampling maps
+    map_r: torch.Tensor
     k_raw_l: torch.Tensor   # [4] (fx, fy, cx, cy) of the raw camera
     k_raw_r: torch.Tensor
     dist_l: torch.Tensor    # [5]
@@ -79,6 +83,9 @@ class VIOStatic:
     # SfM bootstrap's PnP solver, from the reference's `solvePnP` switch:
     # 0 -> "dlt", 1/3/4 -> "epnp", 2/5 -> "p3p" (not ported; ops.pnp raises)
     pnp_solver: str = "dlt"
+    # "sparse": ORB on the raw frames, then analytic rectification of the
+    # keypoints; "dense": the frames are remapped first
+    rectify_mode: str = "sparse"
     marg_prior: bool = True
     marg_forget: float = 1.0
     ba_prior_sigma: float = 0.0
@@ -90,12 +97,23 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
     Applies the float32 precision policy (TF32 off). A CUDA device makes
     the front end launch the CUDA kernels, a CPU device their twins: the
     kernel wrappers decide by the device of the tensors they are given.
-    Only the sparse rectify mode without keyframe full BA is ported."""
-    if cfg.rectify_mode != "sparse" or cfg.full_ba_keyframes:
-        raise NotImplementedError("only rectify_mode='sparse' without full BA")
-    if (cfg.select_dtype != "f32" or cfg.fast_backend not in ("auto", "pallas")
-            or cfg.sample_backend not in ("auto", "pallas")):
-        raise NotImplementedError("the port runs the float32 kernel path only")
+    `fast_backend` and `sample_backend` "auto" mean the kernel path on
+    either device. The map path's `moments_backend` is no configuration
+    field: set it on the returned static,
+    `dataclasses.replace(static, orb=static.orb._replace(...))`. Keyframe
+    full BA and the bfloat16 selection are not ported."""
+    if cfg.full_ba_keyframes:
+        raise NotImplementedError("keyframe full BA is not ported")
+    if cfg.select_dtype != "f32":
+        raise NotImplementedError("the port selects keypoints in float32 only")
+    if cfg.rectify_mode not in ("sparse", "dense"):
+        raise ValueError(f"rectify_mode {cfg.rectify_mode!r}")
+    backends = {}
+    for name in ("fast_backend", "sample_backend"):
+        value = getattr(cfg, name)
+        if value not in ("auto", "pallas", "xla"):
+            raise ValueError(f"{name} {value!r}")
+        backends[name] = "pallas" if value == "auto" else value
     apply_policy()
     device = torch.device(device)
 
@@ -118,9 +136,11 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
     ocfg = orb.OrbConfig(
         n_features=cfg.num_features, n_levels=cfg.level_pyramid,
         scale=cfg.scale_factor, th_hi=float(cfg.ini_th_fast),
-        th_lo=float(cfg.min_th_fast),
+        th_lo=float(cfg.min_th_fast), **backends,
     )
     consts = VIOConstants(
+        map_l=torch.as_tensor(cm.map_left, device=device),
+        map_r=torch.as_tensor(cm.map_right, device=device),
         k_raw_l=k4(cfg.k_left), k_raw_r=k4(cfg.k_right),
         dist_l=d5(cfg.dist_left), dist_r=d5(cfg.dist_right),
         r1=t(cm.R1), r2=t(cm.R2), p1=t(cm.P1), p2=t(cm.P2),
@@ -147,7 +167,7 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
         pool_capacity=cfg.pool_capacity, window=cfg.window_size,
         pnp_solver={0: "dlt", 1: "epnp", 2: "p3p", 3: "epnp", 4: "epnp",
                     5: "p3p"}[cfg.solve_pnp],
-        marg_prior=cfg.marg_prior, marg_forget=cfg.marg_forget,
+        rectify_mode=cfg.rectify_mode, marg_prior=cfg.marg_prior, marg_forget=cfg.marg_forget,
         ba_prior_sigma=cfg.ba_prior_sigma,
     )
     return consts, static
@@ -174,11 +194,16 @@ def init_vio_state(static: VIOStatic, device) -> VIOState:
 
 
 def extract_rectified(img_l, img_r, consts: VIOConstants, static: VIOStatic):
-    """ORB on the raw stereo pair, then analytic rectification of the
-    keypoint coordinates. Images of any dtype are cast to float32."""
-    feats_l, feats_r = orb.extract_pair(
-        img_l.to(torch.float32), img_r.to(torch.float32), static.orb, consts.orb
-    )
+    """ORB features of a stereo pair with rectified keypoint coordinates.
+    Sparse mode: ORB on the raw pair, then analytic rectification of the
+    keypoints. Dense mode: the pair is remapped through the rectification
+    maps first. Images of any dtype are cast to float32."""
+    img_l, img_r = img_l.to(torch.float32), img_r.to(torch.float32)
+    if static.rectify_mode == "dense":
+        rect = remap.remap_bilinear(torch.stack([img_l, img_r]),
+                                    torch.stack([consts.map_l, consts.map_r]))
+        return orb.extract_pair(rect[0], rect[1], static.orb, consts.orb)
+    feats_l, feats_r = orb.extract_pair(img_l, img_r, static.orb, consts.orb)
     feats_l = feats_l._replace(xy=remap.rectify_points(
         feats_l.xy, consts.k_raw_l, consts.dist_l, consts.r1, consts.p1))
     feats_r = feats_r._replace(xy=remap.rectify_points(

@@ -24,13 +24,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu")
+SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
+           "moment_maps.cu", "stream_probe.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
+# --threads 0: the sources compile side by side, one thread for each.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
 )
 
 
@@ -90,6 +92,10 @@ def library() -> ctypes.CDLL:
     lib.sample_patches_launch.restype = i
     lib.fast_score_nms_launch.argtypes = [p, p, p, i, i, i, p]
     lib.fast_score_nms_launch.restype = i
+    lib.moment_maps_launch.argtypes = [p, p, p, p, i, i, i, p]
+    lib.moment_maps_launch.restype = i
+    lib.stream_probe_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.stream_probe_launch.restype = i
     return lib
 
 

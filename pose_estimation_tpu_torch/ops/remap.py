@@ -1,8 +1,10 @@
-"""Analytic keypoint undistortion + rectification.
+"""Undistortion + rectification: of keypoints, or of whole frames.
 
-Counterpart of `pose_estimation_tpu/ops/remap.py:rectify_points` (the sparse
-rectify mode: detection runs on the raw image and only the keypoint
-coordinates are rectified). The dense `remap_bilinear` is not ported yet.
+Counterpart of `pose_estimation_tpu/ops/remap.py`. `rectify_points` serves
+the sparse rectify mode (detection runs on the raw image and only the
+keypoint coordinates are rectified); `remap_bilinear` the dense mode (the
+frames are resampled through the maps of `camera.undistort_rectify_map`
+before detection, cv::remap with INTER_LINEAR and a constant 0 border).
 """
 
 from __future__ import annotations
@@ -32,3 +34,32 @@ def rectify_points(xy, k_raw, dist, r_rect, p_new, iters: int = 5):
     return torch.stack(
         [xr * p_new[0, 0] + p_new[0, 2], yr * p_new[1, 1] + p_new[1, 2]], dim=-1
     )
+
+
+def remap_bilinear(img: torch.Tensor, mapxy: torch.Tensor) -> torch.Tensor:
+    """Sample img [..., H, W] (any dtype) at the float (x, y) source
+    coordinates mapxy [Ho, Wo, 2] -> [..., Ho, Wo] float32, bilinear, 0
+    outside the image. A batched map [B, Ho, Wo, 2] with img [B, H, W]
+    gives each image its own map (the stereo pair)."""
+    h, w = img.shape[-2], img.shape[-1]
+    x, y = mapxy[..., 0], mapxy[..., 1]
+    paired = img.ndim == 3 and mapxy.ndim == 4 and img.shape[0] == mapxy.shape[0]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0).to(torch.float32), (y - y0).to(torch.float32)
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    flat = img.reshape(*img.shape[:-2], h * w)
+
+    def gather(yi, xi):
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        if paired:
+            vals = torch.gather(flat, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+        else:
+            vals = flat[..., idx.reshape(-1)].reshape(*img.shape[:-2], *xi.shape)
+        return torch.where(inb, vals.to(torch.float32), 0.0)
+
+    v00, v01 = gather(y0i, x0i), gather(y0i, x0i + 1)
+    v10, v11 = gather(y0i + 1, x0i), gather(y0i + 1, x0i + 1)
+    top = v00 * (1.0 - fx) + v01 * fx
+    bot = v10 * (1.0 - fx) + v11 * fx
+    return top * (1.0 - fy) + bot * fy

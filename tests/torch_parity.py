@@ -1,11 +1,12 @@
 """Shared fixtures of the PyTorch-port parity tests (`test_torch_*.py`).
 
 Both packages are built from the same small synthetic configuration; data
-moves between them as numpy arrays. The JAX side runs on the CPU with the
-descriptor sampler in Pallas interpret mode (`sample_backend=
-"pallas_interpret"`), because the port follows the kernel path everywhere
-(per-level reflect-101 canvases and rotation by m/r, where the CPU default
-"xla" branch uses full-stack blur and atan2/cos/sin).
+moves between them as numpy arrays. `jax_setup` and `torch_setup` give the
+kernel path: the JAX side runs on the CPU with the descriptor sampler in
+Pallas interpret mode (`sample_backend="pallas_interpret"`), the port with
+its defaults (per-level reflect-101 canvases and rotation by m/r).
+`jax_map_setup` and `torch_map_setup` give the map path (full-stack blur
+and atan2/cos/sin), which is the JAX package's own default on a CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +44,32 @@ def torch_setup(**overrides):
 
     cfg = synthetic_config(**{**SMALL, **overrides})
     consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), "cpu")
+    return cfg, consts, static
+
+
+MAP_BACKENDS = dict(fast_backend="xla", sample_backend="xla")
+
+
+def jax_map_setup(moments_backend="sparse", **overrides):
+    """(cfg, consts, static) of the JAX package on the map path, its CPU
+    default, with the given IC-angle formulation."""
+    from pose_estimation_tpu.camera import CameraModel
+    from pose_estimation_tpu.models import vio
+    from pose_estimation_tpu.testing import synthetic_config
+
+    cfg = synthetic_config(**{**SMALL, **overrides})
+    consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg))
+    assert (static.orb.fast_backend, static.orb.sample_backend) == ("xla", "xla")
+    static = dataclasses.replace(
+        static, orb=static.orb._replace(moments_backend=moments_backend))
+    return cfg, consts, static
+
+
+def torch_map_setup(moments_backend="sparse", **overrides):
+    """(cfg, consts, static) of the port on the CPU, on the map path."""
+    cfg, consts, static = torch_setup(**{**MAP_BACKENDS, **overrides})
+    static = dataclasses.replace(
+        static, orb=static.orb._replace(moments_backend=moments_backend))
     return cfg, consts, static
 
 

@@ -3,22 +3,28 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 tools/profile_torch_step.py [--frames 14] [--warmup 6] [--trace PATH]
+    python3 tools/profile_torch_step.py [--frames 14] [--warmup 6] [--front map]
+                                        [--trace PATH]
 
 Drives `ok_step` at EuRoC scale (752x480 stereo, 8 levels, 800 features,
 the simulator world of `chip_smoke.py`) from a seeded window, profiles the
 frames after the warm-up with `torch.profiler`, and prints: the wall time
 per frame, the device busy share (summed kernel time over wall time), the
 host and device time of each stage span (`ok_step.imu`, `.extract`,
-`.match`, `.backend`, `.pool`), the kernels with the most device time, and
-the state of the profiled frames (LM iterations, keyframes, position error),
-since the LM and keyframe work per frame depends on how well it tracks.
-`--trace` writes a Chrome trace as well.
+`.match`, `.backend`, `.pool`), the kernels with the most device time, the
+hand-written kernels by name (K1 `fast_select`, K2 `sample_patches`, K3
+`fast_score_nms`, K4 `moment_maps`), and the state of the profiled frames
+(LM iterations, keyframes, position error), since the LM and keyframe work
+per frame depends on how well it tracks. `--front map` profiles the
+map-based front end (K1 detection, K4 moment maps, full-stack blur and pool
+gather) in place of the kernel path (K1 and K2), so `ok_step.extract` can
+be split for either. `--trace` writes a Chrome trace as well.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -32,6 +38,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=14)
     ap.add_argument("--warmup", type=int, default=6)
+    ap.add_argument("--front", choices=("kernel", "map"), default="kernel",
+                    help="the ORB front end: K1 + K2, or K1 + K4 with the full-stack blur")
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()
 
@@ -46,6 +54,10 @@ def main() -> None:
     dev = require_cuda()
     cfg = synthetic_config(width=752, height=480, levels=8, features=800)
     consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), dev)
+    if opts.front == "map":
+        static = dataclasses.replace(static, orb=static.orb._replace(
+            sample_backend="xla", moments_backend="pallas"))
+    print(f"front end: {opts.front} ({static.orb})")
     frames, gyrs, accs, mask, truth = sim_frames(cfg, opts.frames, n_landmarks=1200)
     inputs = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                     for a in (frames[i][0], frames[i][1], gyrs[i], accs[i], mask))
@@ -98,6 +110,11 @@ def main() -> None:
                  key=dev_us, reverse=True)[:25]
     for e in top:
         print(f"  {dev_us(e) / 1e3 / n:9.4f} {e.count // n:6d}  {e.key[:90]}")
+    print("hand-written kernels (per frame): device ms, calls")
+    for name in ("fast_select_kernel", "sample_patches_kernel", "fast_score_nms_kernel",
+                 "moment_maps_kernel"):
+        hits = [e for e in kernels if name in e.name]
+        print(f"  {sum(e.device_time for e in hits) / 1e3 / n:9.4f} {len(hits) / n:6.1f}  {name}")
     print(f"kernel launches per frame: {len(kernels) / n:.0f}")
     if opts.trace:
         prof.export_chrome_trace(opts.trace)
