@@ -6,18 +6,21 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the five CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
-checks each against its torch twin at the shapes the main paths give it:
-K1 (FAST select) and K2 (descriptor sampler) at EuRoC scale (752x480
-stereo, 8 levels, 800 features), K3 (FAST score + NMS) at KITTI width
-(1242x375, 8 levels), K4 (circular moment maps) on both plane stacks, also
-against the 31x31 convolution that computes the same maps, and K5 (stream
-probe) over its sweep of plane counts, heights and element types. Then it
-drives, each with the kernel counts set to 0 just before and read just
-after:
+checks each against its torch twin at the shapes the main paths give it,
+timing each by CUDA events and by the profiler's device time: K1 (FAST
+select) at EuRoC scale (752x480 stereo, 8 levels, 800 features), K2
+(descriptor sampler, one launch over every level of the pair) there and at
+KITTI width, K3 (FAST score + NMS) at KITTI width (1242x375, 8 levels), K4
+(circular moment maps) on both plane stacks, also against the 31x31
+convolution that computes the same maps, with the map front end's sparse
+and integral angles held to the float64 ones, and K5 (stream probe) over
+its sweep of plane counts, heights and element types. Then it drives, each
+with the kernel counts set to 0 just before and read just after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
   the true pose: finite state, non-negative BA cost, tracking and BA alive
-  after a 6-frame warm-up, no divergence, K1 and K2 launched;
+  after a 6-frame warm-up, no divergence, K1 and K2 launched once per
+  extraction;
 - the same 16 frames through the map-based front end (K1 detection, K4
   moment maps, full-stack blur and pool gather), with 4 seeds of the
   RANSAC draws: the same checks, but the divergence bound held by at least
@@ -29,13 +32,14 @@ after:
   the JAX package's drift;
 - the host state machine (`slam.VisualInertialSLAM`) at KITTI width over a
   6-s noisy simulation with the kitti profile: it must reach OK, launch K3
-  and K2 and not K1 in every OK frame, keep the BA cost >= 0, the state
+  and K2 once and K1 never in every OK frame, keep the BA cost >= 0, the state
   finite and the aligned error under 2 x distance + 1 m;
 - the accuracy protocol of `benchmarks/chip_accuracy.py` through the port
   (family A worlds 0-2 for 6 s, family B worlds 0-1 for 12 s; gates ATE
   < 4 % of path, |ba| < 1.5, |bg| < 0.01), its runs spread over worker
   processes that share the card. Every run must reach OK, launch K1 and
-  K2 and not K3, and stay under 2 x distance + 1 m. A2, B0 and B1 must
+  K2 once per extraction and K3 never, and stay under 2 x distance + 1 m.
+  A2, B0 and B1 must
   pass the gates. A0 and A1 pass or fail by the random draws in both
   packages (PERF.md, findings on the state machine), so each runs with
   12 seeds of the draws: every run must stay under 3 x each gate, and the
@@ -44,7 +48,8 @@ after:
   below 5 %). Seed 0's runs are printed beside the JAX package's record.
   Two more runs share the workers: world A2 on the map-based front end
   (K4 launched once per extraction, K2 never) and the KITTI-width rig with
-  `rectify_mode="dense"` (K3 and K2, never K1). Each must reach OK, stay
+  `rectify_mode="dense"` (K3 and K2 once per extraction, never K1). Each
+  must reach OK, stay
   finite, under 2 x distance + 1 m and under 3 x each gate; whether it
   passes the gates is printed.
 
@@ -72,15 +77,20 @@ K1_TOL_XY = 1e-5       # px: same float32 operations as the twin
 K2_TOL_MOM = 1e-5      # of the largest moment: float32 sums in another order
 K2_TOL_VAL = 1e-3      # intensity, on >= 99.9 % of samples (a rounded sample
 K2_MIN_CLOSE = 0.999   # point can flip at .5 when the rotation rounds apart)
-# K4 against its twin, of the plane's largest |moment|: the twin's prefix
-# sums run over whole rows and reach ~1e7 (float32 spacing 1-2) where the
-# windowed differences are ~1e3-1e5, and CUDA's cumsum is a block scan whose
-# partial sums do not share their rounding; the kernel's tile-local sums
-# stay below ~1e6. So the twin's rounding sets this tolerance, and the
-# kernel is held much closer to the twin run in float64.
+# K4 against its twin and the convolution against the twin, of the plane's
+# largest |moment|: three summation orders of ~1e3-1e5 moments (the kernel's
+# tile-local prefix sums, the twin's whole-row prefix sums in float64,
+# cuDNN's own algorithm); the kernel is also held much closer to the twin
+# run in float64.
 K4_TOL_MOM = 1e-3
 K4_TOL_MOM_F64 = 2e-5
 K4_TOL_ANGLE = 2e-3    # rad, at detected keypoints, from the float64 twin's angle
+# The map front end's own angle forms (`orb.ic_angle_sparse`, and
+# `moments.ic_angle_integral` of the twin's maps) at the detected keypoints,
+# from the float64 twin's angle, rad. Their prefix sums and differences are
+# taken in float64: float32 whole-row sums from CUDA's block scan put them
+# 1.8e-3 (752 px) and 7.1e-3 rad (1242 px) off.
+MAP_TOL_ANGLE = 1e-3
 K4_MIN_MOMENT = 1e-3   # keypoints with a shorter moment vector (of the plane's
 #                        longest) are skipped: atan2 is ill conditioned there
 # float32 instructions per pixel of the moment maps in prefix-sum form: 2
@@ -148,11 +158,12 @@ PROTOCOL_WORKERS = 4
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
 # float32 instructions per pixel of the FAST-9 score and 3x3 NMS, counted
-# in the twin's form: 16 ring differences, for each polarity the 16
-# nine-long arc extrema as 16 three-long ones (32 min/max) combined by
-# threes (32) and reduced over the 16 arcs (15), the polarity max (1), 8
-# NMS compares
-FAST_OPS_PER_PX = 16 + 2 * (32 + 32 + 15) + 1 + 8
+# in the least form known (csrc/fast_common.cuh): 16 ring differences, for
+# each polarity the 8 two-, four- and eight-long window extrema that the 16
+# nine-long arcs share (24), the pairs of arcs (16) and the reduction over
+# them (7), the polarity max (1), 8 NMS compares. (The twin's form, 16
+# arcs from three-long extrema, takes 183.)
+FAST_OPS_PER_PX = 16 + 2 * (24 + 16 + 7) + 1 + 8
 
 
 def fail(msg: str) -> None:
@@ -249,6 +260,25 @@ def count_prior_clip():
     stats.update(calls=len(r), negative=sum(x < 0 for x in r), worst_ratio=min(r, default=0.0))
 
 
+@contextlib.contextmanager
+def counted_extractions():
+    """Count the calls of `orb.extract_batch` over the block (one per
+    stereo pair extracted); yields a one-element list holding the count."""
+    from pose_estimation_tpu_torch.ops import orb
+
+    n, extract = [0], orb.extract_batch
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return extract(*args, **kwargs)
+
+    orb.extract_batch = counted
+    try:
+        yield n
+    finally:
+        orb.extract_batch = extract
+
+
 # The map-based front end, selected as the JAX package selects it: on the
 # static configuration after construction. Detection stays on K1 or K3.
 MAP_FRONT = dict(sample_backend="xla", moments_backend="pallas")
@@ -264,7 +294,6 @@ def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=Non
     import torch
 
     from pose_estimation_tpu_torch.models import vio
-    from pose_estimation_tpu_torch.ops import orb
     from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
     from pose_estimation_tpu_torch.testing import PROTOCOL_IMU_NOISE
 
@@ -273,12 +302,7 @@ def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=Non
         slam.static = dataclasses.replace(slam.static,
                                           orb=slam.static.orb._replace(**orb_replace))
     frames = []
-    extractions = [0]
-    step, process, extract = vio.ok_step, slam.process, orb.extract_batch
-
-    def counted_extract(*args, **kwargs):
-        extractions[0] += 1
-        return extract(*args, **kwargs)
+    step, process = vio.ok_step, slam.process
 
     def counted_step(*args, **kwargs):
         before = counters()
@@ -298,13 +322,12 @@ def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=Non
         return out
 
     vio.ok_step = counted_step
-    orb.extract_batch = counted_extract
     slam.process = timed_process
     try:
-        gt = world.run(slam, duration=duration, imu_noise=PROTOCOL_IMU_NOISE, seed=imu_seed)
+        with counted_extractions() as extractions:
+            gt = world.run(slam, duration=duration, imu_noise=PROTOCOL_IMU_NOISE, seed=imu_seed)
     finally:
         vio.ok_step = step
-        orb.extract_batch = extract
     return slam, gt, frames, extractions[0]
 
 
@@ -358,12 +381,302 @@ def min_passes(n: int, passes: int, trials: int, alpha: float) -> int:
     return n
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the kernels named `kernel` per call of fn(), in
+    ms: their summed durations under torch.profiler over `reps` calls, the
+    host gaps between launches left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.events() if e.device_type.name == "CUDA" and kernel in e.name]
+    if not hits:
+        fail(f"the profiler saw no kernel named {kernel}")
+    return sum(e.device_time for e in hits) / 1e3 / reps
+
+
+def kernel_result(err, ms, dev_ms, plain_ms, bound_ms_by, lib_ms=None, **extra) -> dict:
+    """One kernel's record: its largest error against the twin, event and
+    device ms, the twin's ms, the bound (ms, "bytes" or "operations"), the
+    library call's ms or None, and any further fields."""
+    return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound=bound_ms_by[0],
+                by=bound_ms_by[1], lib_ms=lib_ms, **extra)
+
+
+def kernel_checks(dev, cfg, frame, kcfg) -> dict:
+    """Phase 3: each kernel against its twin on the card, at the shapes its
+    path gives it: the EuRoC-width stereo pair `frame` [2, H, W] under
+    `cfg` (K1, K2, K4) and a KITTI-width pair under `kcfg` (K3, K2, K4),
+    and K5 over its sweep. Fails on a disagreement; returns each kernel's
+    error, event time, device time, twin time and bound by name."""
+    import torch
+
+    from pose_estimation_tpu_torch.camera import CameraModel
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.ops import fast, moments, orb, probe, sample
+    from pose_estimation_tpu_torch.testing import StereoInertialSim
+
+    res = {}
+    consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), dev)
+    ocfg, oc = static.orb, consts.orb
+    imgs = torch.from_numpy(frame).to(dev)
+    stack, bounds = orb.plane_stack(imgs, ocfg, oc)
+    args = (stack, bounds, ocfg.th_hi, ocfg.th_lo, orb.EDGE, ocfg.k_per_cell)
+    got = fast.fast_select(*args)
+    ref = fast.select_plain(*args)
+    torch.cuda.synchronize()
+    valid = ref[0] > -5e8
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        fail("fast_select: scores or codes differ from the twin")
+    k1_err = max(float((got[2] - ref[2])[valid].abs().max()),
+                 float((got[3] - ref[3])[valid].abs().max()))
+    if k1_err > K1_TOL_XY:
+        fail(f"fast_select: subpixel error {k1_err} > {K1_TOL_XY}")
+    # bytes: the stack read once, the four [N, C] outputs written once;
+    # instructions: FAST + NMS per pixel, plus the border/threshold gates
+    # and the per-cell top-4 (8 compares a pixel)
+    res["fast_select"] = kernel_result(
+        k1_err, cuda_ms(lambda: fast.fast_select(*args)),
+        device_ms(lambda: fast.fast_select(*args), "fast_select_kernel"),
+        cuda_ms(lambda: fast.select_plain(*args), reps=5, warm=1),
+        bound(stack.numel() * 4 + sum(a.numel() * 4 for a in got),
+              stack.numel() * (FAST_OPS_PER_PX + 8)))
+    r = res["fast_select"]
+    print(f"K1 fast_select [{tuple(stack.shape)}]: {int(valid.sum())} candidates, "
+          f"scores/codes exact, max |dxy| {k1_err:.3g} px; kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound']:.4f} ms ({r['by']})")
+
+    # plane top-k: stable sort and first-index argmin on CUDA as on the CPU
+    budgets = orb.level_budgets(ocfg)
+    k_top = min(budgets[0], got[0].shape[1])
+    order_gpu = torch.sort(got[0], dim=1, descending=True, stable=True).indices[:, :k_top]
+    order_cpu = torch.sort(got[0].cpu(), dim=1, descending=True, stable=True).indices[:, :k_top]
+    if not torch.equal(order_gpu.cpu(), order_cpu):
+        fail("stable descending sort differs between CUDA and CPU")
+    rng = np.random.default_rng(0)
+    d = torch.from_numpy(rng.integers(0, 8, (512, 1024)).astype(np.float32))
+    if not torch.equal(torch.argmin(d.to(dev), dim=1).cpu(), torch.argmin(d, dim=1)):
+        fail("argmin ties resolve differently on CUDA")
+    print(f"plane top-k {k_top}: stable sort and first-index argmin agree with the CPU")
+    kps = orb.detect(stack, bounds, ocfg, budgets[0])
+
+    # K3 at KITTI width: the level-major plane stack of one stereo pair,
+    # [16, 375, 1242]; raw and NMS-masked maps bit-equal to the twin
+    kconsts, kstatic = vio.build_constants(kcfg, CameraModel.from_config(kcfg), dev)
+    kimgs = torch.from_numpy(np.stack(StereoInertialSim(kcfg, n_landmarks=150).render(1.0)))
+    kstack, kbounds = orb.plane_stack(kimgs.to(dev), kstatic.orb, kconsts.orb)
+    kraw, kmasked = fast.fast_score_nms(kstack)
+    praw, pmasked = fast.score_nms_plain(kstack)
+    torch.cuda.synchronize()
+    if not (torch.equal(kraw, praw) and torch.equal(kmasked, pmasked)):
+        n_bad = int((kraw != praw).sum() + (kmasked != pmasked).sum())
+        fail(f"fast_score_nms: {n_bad} values differ from the twin")
+    # bytes: 4 read and 8 written per pixel; instructions: FAST + NMS per pixel
+    res["fast_score_nms"] = kernel_result(
+        float(torch.maximum((kraw - praw).abs().max(), (kmasked - pmasked).abs().max())),
+        cuda_ms(lambda: fast.fast_score_nms(kstack)),
+        device_ms(lambda: fast.fast_score_nms(kstack), "fast_score_nms_kernel"),
+        cuda_ms(lambda: fast.score_nms_plain(kstack), reps=5, warm=1),
+        bound(kstack.numel() * 12, kstack.numel() * FAST_OPS_PER_PX))
+    r = res["fast_score_nms"]
+    print(f"K3 fast_score_nms [{tuple(kstack.shape)}]: raw and masked bit-equal to the twin "
+          f"({int((pmasked > 0).sum())} NMS maxima); kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound']:.4f} ms ({r['by']})")
+    del kraw, kmasked, praw, pmasked
+    kbudgets = orb.level_budgets(kstatic.orb)
+    kkps = orb.detect(kstack, kbounds, kstatic.orb, kbudgets[0])
+
+    # K2: one launch over every level of the pair, against the all-levels
+    # twin, at EuRoC width (its path's shape, kept as the kernel's row) and
+    # at KITTI width
+    n_pool = oc.pool_xy.shape[0]
+    n_circle = sum(1 for dy in range(-sample.PATCH_R, sample.PATCH_R + 1)
+                   for dx in range(-sample.PATCH_R, sample.PATCH_R + 1)
+                   if dx * dx + dy * dy <= sample.PATCH_R ** 2)
+    k2 = {}
+    for name, st, bnds, kp, bud in (("euroc", stack, bounds, kps, budgets),
+                                    ("kitti", kstack, kbounds, kkps, kbudgets)):
+        b = st.shape[0] // len(bud)
+        xy = torch.cat([kp.xy[lvl * b:(lvl + 1) * b, :kb] for lvl, kb in enumerate(bud)],
+                       dim=1).contiguous()
+        k2args = (st, bnds, xy, bud, oc.pool_xy)
+        got2 = sample.sample_patches(*k2args)
+        ref2 = sample.sample_stack_plain(*k2args)
+        torch.cuda.synchronize()
+        off = sample.level_offsets(bud)
+        close = []
+        for lvl in range(len(bud)):
+            g, rr = got2[:, off[lvl]:off[lvl + 1]], ref2[:, off[lvl]:off[lvl + 1]]
+            scale = float(rr[..., n_pool:].abs().max())
+            mom_err = float((g[..., n_pool:] - rr[..., n_pool:]).abs().max())
+            if mom_err > K2_TOL_MOM * scale:
+                fail(f"sample_patches ({name}, level {lvl}): moment error {mom_err} > "
+                     f"{K2_TOL_MOM} x {scale}")
+            close.append(float(((g[..., :n_pool] - rr[..., :n_pool]).abs()
+                                <= K2_TOL_VAL).float().mean()))
+        if min(close) < K2_MIN_CLOSE:
+            fail(f"sample_patches ({name}): only {min(close):.5f} of samples within "
+                 f"{K2_TOL_VAL}")
+        n_kp = xy.shape[0] * xy.shape[1]
+        # bytes: each plane's content read once (not the stack's padding),
+        # each keypoint and pool point read once, the [K, P + 2] outputs
+        # written once; instructions per keypoint: the moments (2
+        # multiply-adds per pixel of the radius-15 circle) and per pool
+        # point the 7 x 7 blur as 49 + 7 multiply-adds, the rotation (4
+        # multiplies, 2 adds), its rounding (2) and clamps (4)
+        k2_bytes = (sum(lh * lw for lh, lw in bnds) * 4 + n_kp * (8 + 4 * (n_pool + 2))
+                    + n_pool * 8)
+        k2[name] = kernel_result(
+            float((got2[..., :n_pool] - ref2[..., :n_pool]).abs().max()),
+            cuda_ms(lambda: sample.sample_patches(*k2args)),
+            device_ms(lambda: sample.sample_patches(*k2args), "sample_patches_kernel"),
+            cuda_ms(lambda: sample.sample_stack_plain(*k2args), reps=5, warm=1),
+            bound(k2_bytes, n_kp * (2 * n_circle + n_pool * (56 + 6 + 2 + 4))),
+            keypoints=n_kp, min_close=min(close))
+        r = k2[name]
+        print(f"K2 sample_patches [{tuple(st.shape)}], {n_kp} keypoints over {len(bud)} "
+              f"levels, one launch: moments within {K2_TOL_MOM} rel, min share of samples "
+              f"within {K2_TOL_VAL}: {min(close):.5f}, max |dv| {r['err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound']:.4f} ms ({r['by']})")
+        del got2, ref2
+    res["sample_patches"] = dict(k2["euroc"], kitti_width=k2["kitti"])
+
+    # K4 on both plane stacks: against its twin in float32 and in float64,
+    # at the angles of the detected keypoints, and beside the one PyTorch
+    # call that computes the same maps, a 2-channel 31x31 convolution of the
+    # zero-meaned stack with the circular moment masks (TF32 off, zero
+    # padding: the same function on the whole map). The map front end's
+    # sparse and integral forms are held to the float64 angles as well.
+    d = torch.arange(-moments.PATCH_R, moments.PATCH_R + 1, device=dev, dtype=torch.float32)
+    circle = (d[:, None] ** 2 + d[None, :] ** 2 <= moments.PATCH_R ** 2).to(torch.float32)
+    masks = torch.stack([circle * d[None, :], circle * d[:, None]])[:, None]   # [2, 1, 31, 31]
+
+    def conv_moments(st):
+        return torch.nn.functional.conv2d(moments.zero_mean(st)[:, None], masks,
+                                          padding=moments.PATCH_R)
+
+    def rel_err(a, b):
+        """max |a - b| over the largest |b| of its plane, worst plane."""
+        scale = b.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+        return float(((a - b).abs() / scale).max())
+
+    k4 = {}
+    for name, st, kp in (("euroc", stack, kps), ("kitti", kstack, kkps)):
+        n, h, w = st.shape
+        g10, g01 = moments.moment_maps(st)
+        r10, r01 = moments.moment_maps_plain(st)
+        d10, d01 = moments.moment_maps_plain(st.double())
+        lib = conv_moments(st)
+        torch.cuda.synchronize()
+        err = max(rel_err(g10, r10), rel_err(g01, r01))
+        err64 = max(rel_err(g10.double(), d10), rel_err(g01.double(), d01))
+        twin64 = max(rel_err(r10.double(), d10), rel_err(r01.double(), d01))
+        lib_err = max(rel_err(lib[:, 0], r10), rel_err(lib[:, 1], r01))
+        if err > K4_TOL_MOM:
+            fail(f"moment_maps ({name}): {err:.3g} of the largest |moment| from the twin "
+                 f"> {K4_TOL_MOM}")
+        if err64 > K4_TOL_MOM_F64:
+            fail(f"moment_maps ({name}): {err64:.3g} of the largest |moment| from the "
+                 f"float64 twin > {K4_TOL_MOM_F64}")
+        if lib_err > K4_TOL_MOM:
+            fail(f"moment_maps ({name}): the convolution is {lib_err:.3g} from the twin")
+        xy = kp.xy.reshape(-1, 2)
+        base = (torch.arange(n, device=dev) * (h * w)).repeat_interleave(kp.xy.shape[1])
+        # angles at the detected keypoints against those of the float64
+        # twin: the kernel's, the float32 twin's and the sparse form's
+        idx = base + torch.round(xy[:, 1]).long().clamp(0, h - 1) * w \
+            + torch.round(xy[:, 0]).long().clamp(0, w - 1)
+        mag = torch.hypot(d10, d01)
+        longest = mag.amax(dim=(1, 2)).repeat_interleave(kp.xy.shape[1])
+        keep = kp.valid.reshape(-1) & (mag.reshape(-1)[idx] >= K4_MIN_MOMENT * longest)
+        ang64 = moments.ic_angle_integral(d10.reshape(-1), d01.reshape(-1), base, xy, h, w)
+
+        def ang_off(ang):
+            dang = torch.remainder(ang.double() - ang64 + math.pi, 2 * math.pi) - math.pi
+            return float(dang[keep].abs().max())
+
+        ang_err = ang_off(moments.ic_angle_integral(g10.reshape(-1), g01.reshape(-1),
+                                                    base, xy, h, w))
+        ang_twin = ang_off(moments.ic_angle_integral(r10.reshape(-1), r01.reshape(-1),
+                                                     base, xy, h, w))
+        ang_sparse = ang_off(orb.ic_angle_sparse(st, base, xy))
+        if ang_err > K4_TOL_ANGLE:
+            fail(f"moment_maps ({name}): angle error {ang_err:.3g} rad > {K4_TOL_ANGLE}")
+        if max(ang_twin, ang_sparse) > MAP_TOL_ANGLE:
+            fail(f"map front end ({name}): the integral form's angles are {ang_twin:.3g} rad "
+                 f"and the sparse form's {ang_sparse:.3g} rad from the float64 angles "
+                 f"> {MAP_TOL_ANGLE}")
+        # bytes: the stack read once, the two maps written once
+        k4[name] = kernel_result(
+            float(torch.maximum((g10 - r10).abs().max(), (g01 - r01).abs().max())),
+            cuda_ms(lambda: moments.moment_maps(st)),
+            device_ms(lambda: moments.moment_maps(st), "moment_maps_kernel"),
+            cuda_ms(lambda: moments.moment_maps_plain(st), reps=5, warm=1),
+            bound(st.numel() * 12, st.numel() * K4_OPS_PER_PX),
+            lib_ms=cuda_ms(lambda: conv_moments(st), reps=5, warm=1),
+            angle_err=ang_err, twin_angle_err=ang_twin, sparse_angle_err=ang_sparse)
+        r = k4[name]
+        print(f"K4 moment_maps [{tuple(st.shape)}]: {err:.3g} of the largest |moment| from "
+              f"the twin (tolerance {K4_TOL_MOM}), {err64:.3g} from the twin in float64 "
+              f"(the float32 twin: {twin64:.3g}), conv2d {lib_err:.3g} from the twin; "
+              f"angles at {int(keep.sum())} of {int(kp.valid.sum())} keypoints from the "
+              f"float64 twin's: the kernel {ang_err:.3g} rad (tolerance {K4_TOL_ANGLE}), the "
+              f"integral form {ang_twin:.3g}, the sparse form {ang_sparse:.3g} (tolerance "
+              f"{MAP_TOL_ANGLE}); kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, conv2d {r['lib_ms']:.4f} ms, "
+              f"bound {r['bound']:.4f} ms ({r['by']})")
+        del g10, g01, r10, r01, d10, d01, lib
+    res["moment_maps"] = dict(k4["euroc"], kitti_width=k4["kitti"])
+
+    # K5: the probe's sweep is its path. Every entry's output is held
+    # exactly equal to the twin's inside `sweep`; the largest entry is then
+    # run once more here for the error, the twin's time and the bound.
+    zero_counters()
+    probe_rows = probe.sweep(dev)
+    probe_launches = counters()["stream_probe"]
+    for row in probe_rows:
+        print(f"K5 stream_probe planes={row['planes']:4d} h={row['h']:3d} {row['dtype']:9s} "
+              f"{row['mbytes']:7.1f} MB, {row['programs']} blocks: {row['ms']:.4f} ms/call "
+              f"({row['us_per_block']:.3f} us/block, {row['gbytes_per_s']:.1f} GB/s)")
+    big = max(probe_rows, key=lambda row: row["mbytes"])
+    pstack = torch.rand((big["planes"], big["h"], probe.WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)) * 255
+    ppp = torch.arange(big["planes"], dtype=torch.int32, device=dev).repeat_interleave(
+        probe.PROGS_PER_PLANE)
+    pout = probe.stream_probe(pstack, ppp)
+    k5_err = float((pout - probe.stream_probe_plain(pstack, ppp)).abs().max())
+    if k5_err != 0.0:
+        fail(f"stream_probe: {k5_err} from the twin (must be exact)")
+    # bytes: each distinct plane and index read once, the tiles written
+    # once; one multiply per output element
+    res["stream_probe"] = kernel_result(
+        k5_err, big["ms"], device_ms(lambda: probe.stream_probe(pstack, ppp),
+                                     "stream_probe_kernel"),
+        cuda_ms(lambda: probe.stream_probe_plain(pstack, ppp), reps=5, warm=1),
+        bound(pstack.numel() * 4 + ppp.numel() * 4 + pout.numel() * 4, pout.numel()),
+        launches=probe_launches)
+    r = res["stream_probe"]
+    print(f"K5 stream_probe [{tuple(pstack.shape)}], {ppp.numel()} blocks: exact; "
+          f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} "
+          f"ms, bound {r['bound']:.4f} ms ({r['by']}); {probe_launches} launches in the "
+          "sweep")
+    return res
+
+
 def main() -> None:
     import torch
 
     from pose_estimation_tpu_torch.camera import CameraModel
     from pose_estimation_tpu_torch.models import vio
-    from pose_estimation_tpu_torch.ops import fast, kernels, moments, orb, probe, sample
+    from pose_estimation_tpu_torch.ops import kernels
     from pose_estimation_tpu_torch.slam import State
     from pose_estimation_tpu_torch.testing import (GATE_ATE_PCT, GATE_BA, GATE_BG,
                                                    StereoInertialSim, run_errors,
@@ -391,230 +704,15 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # ---- phase 3: each kernel against its twin at the slice's shapes
+    # ---- phase 3: each kernel against its twin at the paths' shapes
     cfg = synthetic_config(width=752, height=480, levels=8, features=800)
     consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), dev)
     t0 = time.perf_counter()
     frames, gyrs, accs, mask, truth = sim_frames(cfg, N_FRAMES, n_landmarks=1200)
     print(f"sim: {N_FRAMES} frames of {cfg.image_width}x{cfg.image_height} "
           f"rendered in {time.perf_counter() - t0:.1f} s")
-    ocfg, oc = static.orb, consts.orb
-    imgs = torch.from_numpy(np.stack(frames[0])).to(dev)
-    levels, stack, bounds = orb.plane_stack(imgs, ocfg, oc)
-    args = (stack, bounds, ocfg.th_hi, ocfg.th_lo, orb.EDGE, ocfg.k_per_cell)
-    got = fast.fast_select(*args)
-    ref = fast.select_plain(*args)
-    torch.cuda.synchronize()
-    valid = ref[0] > -5e8
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        fail("fast_select: scores or codes differ from the twin")
-    k1_err = max(float((got[2] - ref[2])[valid].abs().max()),
-                 float((got[3] - ref[3])[valid].abs().max()))
-    if k1_err > K1_TOL_XY:
-        fail(f"fast_select: subpixel error {k1_err} > {K1_TOL_XY}")
-    k1_ms = cuda_ms(lambda: fast.fast_select(*args))
-    k1_plain_ms = cuda_ms(lambda: fast.select_plain(*args), reps=5, warm=1)
-    # bytes: the stack read once, the four [N, C] outputs written once;
-    # instructions: FAST + NMS per pixel, plus the border/threshold gates
-    # and the per-cell top-4 (8 compares a pixel)
-    k1_bound, k1_by = bound(stack.numel() * 4 + sum(a.numel() * 4 for a in got),
-                            stack.numel() * (FAST_OPS_PER_PX + 8))
-    print(f"K1 fast_select [{tuple(stack.shape)}]: {int(valid.sum())} candidates, "
-          f"scores/codes exact, max |dxy| {k1_err:.3g} px; "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms "
-          f"({k1_by})")
-
-    # plane top-k: stable sort and first-index argmin on CUDA as on the CPU
-    budgets = orb.level_budgets(ocfg)
-    k_top = min(budgets[0], got[0].shape[1])
-    order_gpu = torch.sort(got[0], dim=1, descending=True, stable=True).indices[:, :k_top]
-    order_cpu = torch.sort(got[0].cpu(), dim=1, descending=True, stable=True).indices[:, :k_top]
-    if not torch.equal(order_gpu.cpu(), order_cpu):
-        fail("stable descending sort differs between CUDA and CPU")
-    rng = np.random.default_rng(0)
-    d = torch.from_numpy(rng.integers(0, 8, (512, 1024)).astype(np.float32))
-    if not torch.equal(torch.argmin(d.to(dev), dim=1).cpu(), torch.argmin(d, dim=1)):
-        fail("argmin ties resolve differently on CUDA")
-    print(f"plane top-k {k_top}: stable sort and first-index argmin agree with the CPU")
-
-    kps = fast.select_keypoints_fused(stack, bounds, ocfg.th_hi, ocfg.th_lo, budgets[0],
-                                      orb.EDGE, ocfg.k_per_cell)
-    b = imgs.shape[0]
-    per_level = []
-    for lvl, kb in enumerate(budgets):
-        xy = kps.xy[lvl * b:(lvl + 1) * b, :kb].reshape(b * kb, 2).contiguous()
-        plane = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(kb)
-        per_level.append((levels[lvl].contiguous(), plane, xy, oc.pool_xy))
-    k2_err, k2_close, n_kp = 0.0, [], 0
-    for lv_args in per_level:
-        gv, g10, g01 = sample.sample_patches(*lv_args)
-        rv, r10, r01 = sample.sample_patches_plain(*lv_args)
-        torch.cuda.synchronize()
-        scale = float(torch.maximum(r10.abs().max(), r01.abs().max()))
-        mom_err = float(torch.maximum((g10 - r10).abs().max(), (g01 - r01).abs().max()))
-        if mom_err > K2_TOL_MOM * scale:
-            fail(f"sample_patches: moment error {mom_err} > {K2_TOL_MOM} x {scale}")
-        diff = (gv - rv).abs()
-        k2_err = max(k2_err, float(diff.max()))
-        k2_close.append(float((diff <= K2_TOL_VAL).float().mean()))
-        n_kp += lv_args[2].shape[0]
-    if min(k2_close) < K2_MIN_CLOSE:
-        fail(f"sample_patches: only {min(k2_close):.5f} of samples within {K2_TOL_VAL}")
-
-    def run_levels(fn):
-        for lv_args in per_level:
-            fn(*lv_args)
-
-    k2_ms = cuda_ms(lambda: run_levels(sample.sample_patches))
-    k2_plain_ms = cuda_ms(lambda: run_levels(sample.sample_patches_plain), reps=5, warm=1)
-    # bytes: each level canvas, keypoint and pool point read once, the
-    # [K, P + 2] outputs written once; instructions per keypoint: the
-    # moments (2 multiply-adds per pixel of the radius-15 circle) and per
-    # pool point the 7 x 7 blur as 49 + 7 multiply-adds, the rotation (4
-    # multiplies, 2 adds), its rounding (2) and clamps (4)
-    n_pool = oc.pool_xy.shape[0]
-    r = sample.PATCH_R
-    n_circle = sum(1 for dy in range(-r, r + 1) for dx in range(-r, r + 1)
-                   if dx * dx + dy * dy <= r * r)
-    k2_bytes = sum(lv[0].numel() * 4 + lv[2].shape[0] * (4 * 3 + 4 * (n_pool + 2))
-                   for lv in per_level) + n_pool * 8
-    k2_bound, k2_by = bound(k2_bytes, n_kp * (2 * n_circle + n_pool * (56 + 6 + 2 + 4)))
-    print(f"K2 sample_patches ({n_kp} keypoints over {len(per_level)} levels): "
-          f"moments within {K2_TOL_MOM} rel, min share of samples within {K2_TOL_VAL}: "
-          f"{min(k2_close):.5f}, max |dv| {k2_err:.3g}; kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms (8 launches), bound {k2_bound:.4f} ms ({k2_by})")
-
-    # K3 at KITTI width: the level-major plane stack of one stereo pair,
-    # [16, 375, 1242]; raw and NMS-masked maps bit-equal to the twin
     kcfg = kitti_config()
-    kconsts, kstatic = vio.build_constants(kcfg, CameraModel.from_config(kcfg), dev)
-    kimgs = torch.from_numpy(np.stack(StereoInertialSim(kcfg, n_landmarks=150).render(1.0)))
-    _, kstack, kbounds = orb.plane_stack(kimgs.to(dev), kstatic.orb, kconsts.orb)
-    kraw, kmasked = fast.fast_score_nms(kstack)
-    praw, pmasked = fast.score_nms_plain(kstack)
-    torch.cuda.synchronize()
-    if not (torch.equal(kraw, praw) and torch.equal(kmasked, pmasked)):
-        n_bad = int((kraw != praw).sum() + (kmasked != pmasked).sum())
-        fail(f"fast_score_nms: {n_bad} values differ from the twin")
-    k3_err = float(torch.maximum((kraw - praw).abs().max(), (kmasked - pmasked).abs().max()))
-    k3_ms = cuda_ms(lambda: fast.fast_score_nms(kstack))
-    k3_plain_ms = cuda_ms(lambda: fast.score_nms_plain(kstack), reps=5, warm=1)
-    # bytes: 4 read and 8 written per pixel; instructions: FAST + NMS per pixel
-    k3_bound, k3_by = bound(kstack.numel() * 12, kstack.numel() * FAST_OPS_PER_PX)
-    print(f"K3 fast_score_nms [{tuple(kstack.shape)}]: raw and masked bit-equal to the twin "
-          f"({int((pmasked > 0).sum())} NMS maxima); kernel {k3_ms:.4f} ms, "
-          f"plain {k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
-
-    # K4 on both plane stacks: against its twin in float32 and in float64,
-    # at the angles of the detected keypoints, and beside the one PyTorch
-    # call that computes the same maps, a 2-channel 31x31 convolution of the
-    # zero-meaned stack with the circular moment masks (TF32 off, zero
-    # padding: the same function on the whole map)
-    d = torch.arange(-moments.PATCH_R, moments.PATCH_R + 1, device=dev, dtype=torch.float32)
-    circle = (d[:, None] ** 2 + d[None, :] ** 2 <= moments.PATCH_R ** 2).to(torch.float32)
-    masks = torch.stack([circle * d[None, :], circle * d[:, None]])[:, None]   # [2, 1, 31, 31]
-
-    def conv_moments(st):
-        return torch.nn.functional.conv2d(moments.zero_mean(st)[:, None], masks,
-                                          padding=moments.PATCH_R)
-
-    def rel_err(a, b):
-        """max |a - b| over the largest |b| of its plane, worst plane."""
-        scale = b.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
-        return float(((a - b).abs() / scale).max())
-
-    kkps = orb.detect(kstack, kbounds, kstatic.orb, orb.level_budgets(kstatic.orb)[0])
-    k4 = {}
-    for name, st, kp in (("euroc", stack, kps), ("kitti", kstack, kkps)):
-        n, h, w = st.shape
-        g10, g01 = moments.moment_maps(st)
-        r10, r01 = moments.moment_maps_plain(st)
-        d10, d01 = moments.moment_maps_plain(st.double())
-        lib = conv_moments(st)
-        torch.cuda.synchronize()
-        err = max(rel_err(g10, r10), rel_err(g01, r01))
-        err64 = max(rel_err(g10.double(), d10), rel_err(g01.double(), d01))
-        twin64 = max(rel_err(r10.double(), d10), rel_err(r01.double(), d01))
-        lib_err = max(rel_err(lib[:, 0], r10), rel_err(lib[:, 1], r01))
-        if err > K4_TOL_MOM:
-            fail(f"moment_maps ({name}): {err:.3g} of the largest |moment| from the twin "
-                 f"> {K4_TOL_MOM}")
-        if err64 > K4_TOL_MOM_F64:
-            fail(f"moment_maps ({name}): {err64:.3g} of the largest |moment| from the "
-                 f"float64 twin > {K4_TOL_MOM_F64}")
-        if lib_err > K4_TOL_MOM:
-            fail(f"moment_maps ({name}): the convolution is {lib_err:.3g} from the twin")
-        xy = kp.xy.reshape(-1, 2)
-        base = (torch.arange(n, device=dev) * (h * w)).repeat_interleave(kp.xy.shape[1])
-        # angles at the detected keypoints against those of the float64
-        # twin: the kernel's (held to the tolerance), and for the record
-        # the float32 twin's and the sparse form's, whose whole-row prefix
-        # sums lose more on the card than the tolerance allows
-        idx = base + torch.round(xy[:, 1]).long().clamp(0, h - 1) * w \
-            + torch.round(xy[:, 0]).long().clamp(0, w - 1)
-        mag = torch.hypot(d10, d01)
-        longest = mag.amax(dim=(1, 2)).repeat_interleave(kp.xy.shape[1])
-        keep = kp.valid.reshape(-1) & (mag.reshape(-1)[idx] >= K4_MIN_MOMENT * longest)
-        ang64 = moments.ic_angle_integral(d10.reshape(-1), d01.reshape(-1), base, xy, h, w)
-
-        def ang_off(ang):
-            dang = torch.remainder(ang.double() - ang64 + math.pi, 2 * math.pi) - math.pi
-            return float(dang[keep].abs().max())
-
-        ang_err = ang_off(moments.ic_angle_integral(g10.reshape(-1), g01.reshape(-1),
-                                                    base, xy, h, w))
-        ang_twin = ang_off(moments.ic_angle_integral(r10.reshape(-1), r01.reshape(-1),
-                                                     base, xy, h, w))
-        ang_sparse = ang_off(orb.ic_angle_sparse(st, base, xy))
-        if ang_err > K4_TOL_ANGLE:
-            fail(f"moment_maps ({name}): angle error {ang_err:.3g} rad > {K4_TOL_ANGLE}")
-        ms = cuda_ms(lambda: moments.moment_maps(st))
-        plain_ms = cuda_ms(lambda: moments.moment_maps_plain(st), reps=5, warm=1)
-        lib_ms = cuda_ms(lambda: conv_moments(st), reps=5, warm=1)
-        # bytes: the stack read once, the two maps written once
-        b_ms, b_by = bound(st.numel() * 12, st.numel() * K4_OPS_PER_PX)
-        k4[name] = dict(err=float(torch.maximum((g10 - r10).abs().max(),
-                                                (g01 - r01).abs().max())), ms=ms, plain_ms=plain_ms,
-                        lib_ms=lib_ms, bound=b_ms, by=b_by, angle_err=ang_err,
-                        twin_angle_err=ang_twin, sparse_angle_err=ang_sparse)
-        print(f"K4 moment_maps [{tuple(st.shape)}]: {err:.3g} of the largest |moment| from "
-              f"the twin (tolerance {K4_TOL_MOM}), {err64:.3g} from the twin in float64 "
-              f"(the float32 twin: {twin64:.3g}), conv2d {lib_err:.3g} from the twin; "
-              f"angles at {int(keep.sum())} of {int(kp.valid.sum())} keypoints within "
-              f"{ang_err:.3g} rad of the float64 twin's (the float32 twin {ang_twin:.3g}, "
-              f"the sparse form {ang_sparse:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"conv2d {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        del g10, g01, r10, r01, d10, d01, lib
-
-    # K5: the probe's sweep is its path. Every entry's output is held
-    # exactly equal to the twin's inside `sweep`; the largest entry is then
-    # run once more here for the error, the twin's time and the bound.
-    zero_counters()
-    probe_rows = probe.sweep(dev)
-    probe_launches = counters()["stream_probe"]
-    for row in probe_rows:
-        print(f"K5 stream_probe planes={row['planes']:4d} h={row['h']:3d} {row['dtype']:9s} "
-              f"{row['mbytes']:7.1f} MB, {row['programs']} blocks: {row['ms']:.4f} ms/call "
-              f"({row['us_per_block']:.3f} us/block, {row['gbytes_per_s']:.1f} GB/s)")
-    big = max(probe_rows, key=lambda row: row["mbytes"])
-    pstack = torch.rand((big["planes"], big["h"], probe.WIDTH), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1)) * 255
-    ppp = torch.arange(big["planes"], dtype=torch.int32, device=dev).repeat_interleave(
-        probe.PROGS_PER_PLANE)
-    pout = probe.stream_probe(pstack, ppp)
-    k5_err = float((pout - probe.stream_probe_plain(pstack, ppp)).abs().max())
-    if k5_err != 0.0:
-        fail(f"stream_probe: {k5_err} from the twin (must be exact)")
-    k5_ms = big["ms"]
-    k5_plain_ms = cuda_ms(lambda: probe.stream_probe_plain(pstack, ppp), reps=5, warm=1)
-    # bytes: each distinct plane and index read once, the tiles written
-    # once; one multiply per output element
-    k5_bound, k5_by = bound(pstack.numel() * 4 + ppp.numel() * 4 + pout.numel() * 4,
-                            pout.numel())
-    print(f"K5 stream_probe [{tuple(pstack.shape)}], {ppp.numel()} blocks: exact; "
-          f"kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, bound {k5_bound:.4f} ms "
-          f"({k5_by}); {probe_launches} launches in the sweep")
-    del pstack, pout
+    k = kernel_checks(dev, cfg, np.stack(frames[0]), kcfg)
 
     # ---- phase 4: the frame step over the sim, from the true start pose,
     # on the kernel path and on the map-based front end
@@ -627,26 +725,28 @@ def main() -> None:
     def run_chain(label, static, seed=0):
         """N_FRAMES chained ok_steps from the seeded window, the RANSAC
         draws from `seed`. Returns (launches, ms per frame after the
-        warm-up, the largest error in m beyond DIVERGED_PER_M x distance)."""
+        warm-up, the largest error in m beyond DIVERGED_PER_M x distance,
+        the stereo pairs extracted)."""
         state = seeded_state(static, truth, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         torch.cuda.synchronize()
         zero_counters()
         metrics = []
         t_start = t_warm = time.perf_counter()
-        for i in range(N_FRAMES):
-            if i == WARMUP:
-                torch.cuda.synchronize()
-                t_warm = time.perf_counter()
-            state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
-            metrics.append(m)
-        torch.cuda.synchronize()
+        with counted_extractions() as extractions:
+            for i in range(N_FRAMES):
+                if i == WARMUP:
+                    torch.cuda.synchronize()
+                    t_warm = time.perf_counter()
+                state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
+                metrics.append(m)
+            torch.cuda.synchronize()
         t_end = time.perf_counter()
         launches = counters()
         ms_frame = (t_end - t_warm) * 1e3 / (N_FRAMES - WARMUP)
         print(f"{label}: {N_FRAMES} frames in {t_end - t_start:.2f} s; chained "
               f"{ms_frame:.2f} ms/frame over frames {WARMUP}-{N_FRAMES - 1}; "
-              f"launches {launches}")
+              f"{extractions[0]} extractions, launches {launches}")
         dist, excess = 0.0, -math.inf
         for i, m in enumerate(metrics):
             dist += float(np.linalg.norm(truth(i + 1)[1] - truth(i)[1]))
@@ -669,27 +769,29 @@ def main() -> None:
                   if t.is_floating_point()]
         if not all(bool(torch.isfinite(t).all()) for t in leaves):
             fail(f"{label}: non-finite state")
-        return launches, ms_frame, excess
+        return launches, ms_frame, excess, extractions[0]
 
-    launches, ms_frame, excess = run_chain("ok_step", static)
+    launches, ms_frame, excess, n_extract = run_chain("ok_step", static)
     if excess > DIVERGED_M:
         fail(f"ok_step: diverged, {excess:.3f} m beyond {DIVERGED_PER_M} x the distance")
-    if min(launches["fast_select"], launches["sample_patches"]) <= 0:
-        fail(f"a kernel of the path was not launched by ok_step: {launches}")
+    if n_extract != N_FRAMES or launches["fast_select"] != n_extract \
+            or launches["sample_patches"] != n_extract:
+        fail(f"ok_step on the kernel path must launch K1 and K2 once per extraction "
+             f"({n_extract} in {N_FRAMES} frames): {launches}")
     if launches["fast_score_nms"] or launches["moment_maps"]:
         fail(f"ok_step on the kernel path at a width divisible by 16 launched K3 or K4: "
              f"{launches}")
     map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
     map_chains = [run_chain(f"ok_step, map front end, seed {seed}", map_static, seed)
                   for seed in MAP_SEEDS]
-    for chain_launches, _, _ in map_chains:
+    for chain_launches, _, _, _ in map_chains:
         if (chain_launches["fast_select"], chain_launches["moment_maps"]) \
                 != (N_FRAMES, N_FRAMES) \
                 or chain_launches["sample_patches"] or chain_launches["fast_score_nms"]:
             fail(f"the map front end must launch K1 and K4 once per frame and K2 and K3 "
                  f"never: {chain_launches}")
-    map_launches, map_ms_frame, _ = map_chains[0]
-    map_excess = [x for _, _, x in map_chains]
+    map_launches, map_ms_frame, _, _ = map_chains[0]
+    map_excess = [x for _, _, x, _ in map_chains]
     map_held = sum(x <= DIVERGED_M for x in map_excess)
     print(f"map front end: {map_held} of {len(MAP_SEEDS)} chains within {DIVERGED_PER_M} x "
           f"distance + {DIVERGED_M} m (largest excess per chain, m: "
@@ -760,16 +862,20 @@ def main() -> None:
     zero_counters()
     t0 = time.perf_counter()
     with count_prior_clip() as kitti_clip:
-        kslam, kgt, kframes, _ = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
+        kslam, kgt, kframes, k_extract = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
     kitti_launches = counters()
     k_wall = time.perf_counter() - t0
     if kslam.state != State.OK or not kframes:
         fail(f"KITTI width: the state machine ended in {kslam.state.name} "
              f"after {len(kframes)} OK frames")
+    if (kitti_launches["fast_score_nms"], kitti_launches["sample_patches"]) \
+            != (k_extract, k_extract):
+        fail(f"KITTI width: launches {kitti_launches} in {k_extract} extractions (K3 and K2 "
+             "once each)")
     for i, fr in enumerate(kframes):
         n = fr["launches"]
-        if n["fast_select"] or n["fast_score_nms"] <= 0 or n["sample_patches"] <= 0:
-            fail(f"KITTI width, OK frame {i}: launches {n} (K3 and K2 must launch, K1 not)")
+        if n["fast_select"] or n["fast_score_nms"] != 1 or n["sample_patches"] != 1:
+            fail(f"KITTI width, OK frame {i}: launches {n} (K3 and K2 once, K1 never)")
         cost = float(fr["metrics"]["ba_cost"])
         if not cost >= 0.0:
             fail(f"KITTI width, OK frame {i}: BA cost {cost} is negative or not finite")
@@ -786,7 +892,8 @@ def main() -> None:
           f"{kcfg.level_pyramid} levels, {kcfg.num_features} features, 6 s, "
           f"{k_wall:.1f} s): {len(kframes)} OK frames, {kitti_ms:.2f} ms/frame over them; "
           f"ATE {ke['ate_pct']:.3f} % of path, |ba| {ke['ba']:.4f}, |bg| {ke['bg']:.5f}, "
-          f"worst aligned error {k_err.max():.3f} m; launches {kitti_launches}; "
+          f"worst aligned error {k_err.max():.3f} m; {k_extract} extractions, launches "
+          f"{kitti_launches}; "
           f"marginalization clip {kitti_clip}")
 
     # ---- phase 8: the accuracy protocol (benchmarks/chip_accuracy.py), its
@@ -820,13 +927,14 @@ def main() -> None:
                 fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
                      "(K1 and K4 once each, K2 and K3 never)")
         elif r["run"] == "KITTI-dense":
-            if n["fast_score_nms"] != r["extractions"] or n["sample_patches"] <= 0 \
+            if (n["fast_score_nms"], n["sample_patches"]) != (r["extractions"],) * 2 \
                     or n["fast_select"] or n["moment_maps"]:
                 fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
-                     "(K3 once each and K2, K1 and K4 never)")
-        elif n["fast_select"] <= 0 or n["sample_patches"] <= 0 or n["fast_score_nms"] \
-                or n["moment_maps"]:
-            fail(f"accuracy {name}: launches {n} (K1 and K2 must launch, K3 and K4 not)")
+                     "(K3 and K2 once each, K1 and K4 never)")
+        elif (n["fast_select"], n["sample_patches"]) != (r["extractions"],) * 2 \
+                or n["fast_score_nms"] or n["moment_maps"]:
+            fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions (K1 and "
+                 "K2 once each, K3 and K4 never)")
         line = (f"accuracy {name}: ATE {r['ate_pct']:.3f} % of path, |ba| {r['ba']:.4f}, "
                 f"|bg| {r['bg']:.5f} -> {'pass' if r['pass'] else 'miss'}; "
                 f"{r['ok_frames']} OK frames, {r['ms_per_ok_frame']:.2f} ms each "
@@ -873,39 +981,30 @@ def main() -> None:
         fail(f"the run imported JAX or the JAX package: {loaded[:5]}")
 
     # K4 alone has a library time: one conv2d computes its maps. No single
-    # PyTorch call computes what K1, K2, K3 or K5 computes.
+    # PyTorch call computes what K1, K2, K3 or K5 computes. Launches are
+    # those of the main path's run: the EuRoC-width chain on the kernel
+    # path (K1, K2), the KITTI-width state machine (K3), the map front
+    # end's chain (K4), the probe's sweep (K5).
+    main_launches = {"fast_select": launches["fast_select"],
+                     "sample_patches": launches["sample_patches"],
+                     "fast_score_nms": kitti_launches["fast_score_nms"],
+                     "moment_maps": map_launches["moment_maps"],
+                     "stream_probe": k["stream_probe"]["launches"]}
+    sources = {"fast_select": ("fast_select.cu", "pose_estimation_tpu/ops/pallas_fast.py:160"),
+               "sample_patches": ("sample_patches.cu",
+                                  "pose_estimation_tpu/ops/pallas_sample.py:111"),
+               "fast_score_nms": ("fast_score_nms.cu",
+                                  "pose_estimation_tpu/ops/pallas_fast.py:34"),
+               "moment_maps": ("moment_maps.cu", "pose_estimation_tpu/ops/pallas_fast.py:518"),
+               "stream_probe": ("stream_probe.cu", "benchmarks/launch_overhead_exp.py:37")}
     summary = {"kernels": [
-        {"name": "fast_select", "route": "cuda",
-         "source": "pose_estimation_tpu_torch/csrc/fast_select.cu",
-         "replaces": "pose_estimation_tpu/ops/pallas_fast.py:160",
-         "launches": launches["fast_select"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
-        {"name": "sample_patches", "route": "cuda",
-         "source": "pose_estimation_tpu_torch/csrc/sample_patches.cu",
-         "replaces": "pose_estimation_tpu/ops/pallas_sample.py:111",
-         "launches": launches["sample_patches"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
-        {"name": "fast_score_nms", "route": "cuda",
-         "source": "pose_estimation_tpu_torch/csrc/fast_score_nms.cu",
-         "replaces": "pose_estimation_tpu/ops/pallas_fast.py:34",
-         "launches": kitti_launches["fast_score_nms"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
-        {"name": "moment_maps", "route": "cuda",
-         "source": "pose_estimation_tpu_torch/csrc/moment_maps.cu",
-         "replaces": "pose_estimation_tpu/ops/pallas_fast.py:518",
-         "launches": map_launches["moment_maps"], "max_abs_err": k4["euroc"]["err"],
-         "ms": k4["euroc"]["ms"], "plain_ms": k4["euroc"]["plain_ms"],
-         "bound_ms": k4["euroc"]["bound"], "bound_by": k4["euroc"]["by"],
-         "library_ms": k4["euroc"]["lib_ms"], "kitti_width": k4["kitti"]},
-        {"name": "stream_probe", "route": "cuda",
-         "source": "pose_estimation_tpu_torch/csrc/stream_probe.cu",
-         "replaces": "benchmarks/launch_overhead_exp.py:37",
-         "launches": probe_launches, "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
-         "library_ms": None},
+        {"name": name, "route": "cuda", "source": f"pose_estimation_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": main_launches[name],
+         "max_abs_err": k[name]["err"], "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
+         "bound_ms": k[name]["bound"], "bound_by": k[name]["by"],
+         "library_ms": k[name]["lib_ms"], "device_ms": k[name]["device_ms"],
+         **({"kitti_width": k[name]["kitti_width"]} if "kitti_width" in k[name] else {})}
+        for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
         "kitti_ms_per_ok_frame": kitti_ms}
     print(json.dumps(summary))

@@ -2,10 +2,11 @@
 // code shared by kernels K1 (fast_select.cu) and K3 (fast_score_nms.cu).
 //
 // Both kernels stage an input tile with a 4-pixel halo (FAST ring 3 + NMS 1)
-// and score the tile plus a 1-pixel ring; they differ only in how the halo
-// is filled at the image edges (K1 clamps rows and columns, K3 clamps rows
-// and wraps columns, as its TPU kernel and twin do). Scores are exact: the
-// differences, minima and maxima of the same float32 values in any order.
+// and score the tile plus a 1-pixel ring; they differ in how the halo is
+// filled at the image edges (K1 clamps rows and columns, K3 clamps rows and
+// wraps columns, as its TPU kernel and twin do) and in their tiling. Scores
+// are exact: differences, minima, maxima and negations of the same float32
+// values in any order.
 
 #pragma once
 
@@ -16,32 +17,48 @@ namespace {
 
 constexpr int HALO = 4;  // FAST ring 3 + NMS 1
 
-// Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx).
-__constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-
-// FAST score of tile element (r, c): the max over bright and dark of the
-// max over the 16 nine-long arcs of the minimum ring-minus-centre
-// difference. `tile` is row-major with leading dimension `ld`; the ring
-// reads rows r-3..r+3 and columns c-3..c+3.
-__device__ __forceinline__ float score_at(const float* tile, int ld, int r, int c) {
-  const float center = tile[r * ld + c];
-  float d[16];
+// FAST score of the tile element at `p`: the max over bright and dark of
+// the max over the 16 nine-long arcs of the ring, d the 16 ring-minus-centre
+// differences (Bresenham circle of radius 3, clockwise from 12 o'clock):
+//   bright = max_s min(d[s .. s+8]),  dark = max_s min(-d[s .. s+8]),
+// the torch twin's arc form (ops/fast.py), whose value this returns exactly
+// (min, max and negation of the same float32 values, in another order).
+// The arcs are not taken one by one: the arcs starting at 2j and 2j+1
+// share the eight elements W_j = d[2j+1 .. 2j+8], so with
+//   max(min(d[2j], W_j), min(d[2j+9], W_j)) = min(W_j, max(d[2j], d[2j+9]))
+// both polarities take 8 pair, 8 four-long and 8 eight-long window extrema,
+// 16 for the pairs of arcs and 7 to reduce: 47 min/max a polarity where
+// the twin's form takes 79. dark = -min_j max(max W_j, min(d[2j], d[2j+9])).
+// LD is the tile's leading dimension, so every ring offset is an immediate.
+template <int LD>
+__device__ __forceinline__ float score_at(const float* p) {
+  const float c = p[0];
+  const float d[16] = {
+      p[-3 * LD] - c,     p[-3 * LD + 1] - c, p[-2 * LD + 2] - c, p[-LD + 3] - c,
+      p[3] - c,           p[LD + 3] - c,      p[2 * LD + 2] - c,  p[3 * LD + 1] - c,
+      p[3 * LD] - c,      p[3 * LD - 1] - c,  p[2 * LD - 2] - c,  p[LD - 3] - c,
+      p[-3] - c,          p[-LD - 3] - c,     p[-2 * LD - 2] - c, p[-3 * LD - 1] - c};
+  float lo2[8], hi2[8], lo4[8], hi4[8];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) d[k] = tile[(r + kRingDy[k]) * ld + c + kRingDx[k]] - center;
-  float bright = -INFINITY, dark = -INFINITY;
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    float mn = d[s], mx = d[s];
-#pragma unroll
-    for (int j = 1; j < 9; ++j) {
-      mn = fminf(mn, d[(s + j) & 15]);
-      mx = fmaxf(mx, d[(s + j) & 15]);
-    }
-    bright = fmaxf(bright, mn);
-    dark = fmaxf(dark, -mx);
+  for (int j = 0; j < 8; ++j) {              // d[2j+1 .. 2j+2]
+    lo2[j] = fminf(d[2 * j + 1], d[(2 * j + 2) & 15]);
+    hi2[j] = fmaxf(d[2 * j + 1], d[(2 * j + 2) & 15]);
   }
-  return fmaxf(bright, dark);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {              // d[2j+1 .. 2j+4]
+    lo4[j] = fminf(lo2[j], lo2[(j + 1) & 7]);
+    hi4[j] = fmaxf(hi2[j], hi2[(j + 1) & 7]);
+  }
+  float bright = 0.0f, dark = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {              // W_j = d[2j+1 .. 2j+8]
+    const float a = d[2 * j], e = d[(2 * j + 9) & 15];
+    const float b = fminf(fminf(lo4[j], lo4[(j + 2) & 7]), fmaxf(a, e));
+    const float k = fmaxf(fmaxf(hi4[j], hi4[(j + 2) & 7]), fminf(a, e));
+    bright = j == 0 ? b : fmaxf(bright, b);
+    dark = j == 0 ? k : fminf(dark, k);
+  }
+  return fmaxf(bright, -dark);
 }
 
 // 3x3 NMS at score element (r, c) with raster tie-breaking: earlier

@@ -9,9 +9,9 @@
 // plane's content.
 //
 // What bounds it on the H100: the stencil arithmetic. Each pixel's score
-// takes 16 ring differences and a max over 16 nine-long arc minima, for
-// bright and dark, i.e. a few hundred ALU operations per pixel against one
-// 4-byte read, so the kernel is compute-bound, not bandwidth-bound (the
+// takes 16 ring differences and the max over 16 nine-long arc minima, for
+// bright and dark, ~120 ALU operations per pixel with the gates against
+// one 4-byte read, so the kernel is compute-bound, not bandwidth-bound (the
 // [16, 480, 752] stack is 23 MB). The design keeps every intermediate on
 // chip: one block stages a 16-row x 128-column tile (8 cells) plus a 4-px
 // halo in shared memory, scores the tile plus a 1-px ring once, and
@@ -87,7 +87,7 @@ fast_select_kernel(const float* __restrict__ stack, PlaneDims dims,
   // (y0 - 1 + r, x0 - 1 + c), i.e. tile[r + 3][c + 3]
   for (int i = threadIdx.x; i < SR * SC; i += blockDim.x) {
     int r = i / SC, c = i % SC;
-    score[r][c] = fastk::score_at(&tile[0][0], LC, r + 3, c + 3);
+    score[r][c] = fastk::score_at<LC>(&tile[r + 3][c + 3]);
   }
   __syncthreads();
 

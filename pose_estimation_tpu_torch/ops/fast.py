@@ -157,10 +157,10 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
 
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
     _select_kernel` (via `fast_select_pallas`). On the H100 it is bound by
-    the per-pixel stencil arithmetic (a few hundred ALU operations per
-    4-byte pixel); the kernel stages a 16 x 128 tile with its halo in
-    shared memory, scores it once and selects with one warp per cell, so
-    only the selected slots reach device memory. A CUDA tensor launches the
+    the per-pixel stencil arithmetic (~120 ALU operations per 4-byte
+    pixel, most of them min/max); the kernel stages a 16 x 128 tile with
+    its halo in shared memory, scores it once and selects with one warp per
+    cell, so only the selected slots reach device memory. A CUDA tensor launches the
     kernel (or raises); a CPU tensor runs `select_plain`."""
     if not stack.is_cuda:
         return select_plain(stack, bounds, th_hi, th_lo, border, k_per_cell)
@@ -264,11 +264,13 @@ def fast_score_nms(stack: torch.Tensor):
 
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
     _kernel` (via `fast_score_nms_pallas`). On the H100 it is bound about
-    equally by its bytes (4 read and 8 written per pixel) and by ~200
-    float32 min/max/sub operations per pixel; one block stages a 16 x 128
-    tile with its 4-px halo in shared memory, scores it once and writes
-    both maps. A CUDA tensor launches the kernel (or raises); a CPU tensor
-    runs `score_nms_plain`."""
+    equally by its bytes (4 read and 8 written per pixel) and by ~120
+    float32 instructions per pixel, most of them min/max, which issue at
+    half the rate of adds; one block of 256 threads stages a 32 x 128 tile
+    with its 4-px halo in shared memory, each thread scores one column of
+    it with the arcs' window extrema shared (`csrc/fast_common.cuh`), and
+    writes both maps. A CUDA tensor launches the kernel (or raises); a CPU
+    tensor runs `score_nms_plain`."""
     if not stack.is_cuda:
         return score_nms_plain(stack)
     if stack.dtype != torch.float32 or not stack.is_contiguous() or stack.ndim != 3:

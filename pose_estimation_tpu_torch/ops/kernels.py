@@ -86,9 +86,7 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, p,
     ]
     lib.fast_select_launch.restype = i
-    lib.sample_patches_launch.argtypes = [
-        p, p, p, p, p, p, p, p, i, i, i, i, i, p,
-    ]
+    lib.sample_patches_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.sample_patches_launch.restype = i
     lib.fast_score_nms_launch.argtypes = [p, p, p, i, i, i, p]
     lib.fast_score_nms_launch.restype = i

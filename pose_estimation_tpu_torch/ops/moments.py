@@ -39,17 +39,33 @@ def zero_mean(stack: torch.Tensor) -> torch.Tensor:
     return stack - stack.mean(dim=(-2, -1), keepdim=True)
 
 
+def prefix_sums(stack: torch.Tensor):
+    """(P, Q, xc): the row prefix sums of the zero-meaned stack [..., H, W]
+    and of its product with xc = x - W / 2, in float64, with xc in float64.
+
+    A float32 prefix sum over a whole row reaches ~1e7 (spacing 1-2) where
+    the windowed differences taken from it are ~1e3-1e5, so its rounding
+    decides the moments. A sequential sum shares its rounding between
+    neighbouring partial sums, which the differences cancel; CUDA's cumsum
+    is a block scan whose partial sums do not, and its angles drift by up
+    to 7e-3 rad at 1242 px. In float64 the differences are exact to float32
+    whatever the scan order, so the forms agree on every device."""
+    w = stack.shape[-1]
+    s = stack.to(torch.float64)
+    xc = torch.arange(w, dtype=torch.float64, device=stack.device) - w / 2.0
+    return torch.cumsum(s, dim=-1), torch.cumsum(s * xc, dim=-1), xc
+
+
 def moment_maps_plain(stack: torch.Tensor):
     """Twin of kernel K4: (m10, m01) of a plane stack [..., H, W], each
-    [..., H, W], by sequential row prefix sums and shifted adds. The whole
+    [..., H, W] in the stack's type, by row prefix sums and shifted adds.
+    The prefix sums and their windowed differences are taken in float64
+    (`prefix_sums`), the 31-row accumulation in the stack's type. The whole
     map is defined: windows and rows that leave the canvas read zeros."""
     h, w = stack.shape[-2], stack.shape[-1]
+    dt = stack.dtype
     stack = zero_mean(stack)
-    # torch.cumsum, not a triangular matmul: neighbouring partial sums share
-    # their rounding error, which the windowed differences cancel
-    xc = torch.arange(w, dtype=stack.dtype, device=stack.device) - w / 2.0
-    p = torch.cumsum(stack, dim=-1)
-    q = torch.cumsum(stack * xc, dim=-1)
+    p, q, xc = prefix_sums(stack)
 
     def window(c, r):
         """c[..., x + r] - c[..., x - r - 1], with c[..., < 0] = 0 and
@@ -61,8 +77,9 @@ def moment_maps_plain(stack: torch.Tensor):
 
     box, ramp = {}, {}
     for r in sorted(set(RS.tolist())):
-        box[r] = window(p, r)
-        ramp[r] = window(q, r) - xc * box[r]
+        b = window(p, r)
+        box[r] = b.to(dt)
+        ramp[r] = (window(q, r) - xc * b).to(dt)
 
     def shift_y(a, dy):
         """a[..., y + dy, :] with zero fill."""

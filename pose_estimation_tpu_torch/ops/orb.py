@@ -12,8 +12,10 @@ and its sign.
   `"xla"`: the plain `fast.fast_score` and `select_keypoints_batched` with
   its own NMS.
 - **Description** (`OrbConfig.sample_backend`). `"pallas"`, the kernel
-  path: per level kernel K2 (`sample.sample_patches`) on the level's own
-  canvas, reflected at its content edge, then `atan2` of its moments.
+  path: kernel K2 (`sample.sample_patches`), one launch over the plane
+  stack for every level, each plane reflected at its content edge (as the
+  JAX package's per-level calls on the content-shaped levels), then
+  `atan2` of its moments.
   `"xla"`, the map path: the intensity-centroid angle from the plane stack
   by `OrbConfig.moments_backend`, a 7x7 Gaussian blur of the whole stack
   (`gaussian_blur7`, reflected at the canvas edge, so upper levels blur
@@ -133,17 +135,16 @@ def pyramid_levels(imgs: torch.Tensor, oc: OrbConstants) -> list:
 
 
 def plane_stack(imgs: torch.Tensor, cfg: OrbConfig, oc: OrbConstants):
-    """(levels, stack, bounds): the content-shaped levels, the level-major
-    zero-padded plane stack [n_levels * B, H, W] that kernel K1 reads, and
+    """(stack, bounds): the level-major zero-padded plane stack [n_levels *
+    B, H, W] of the content-shaped levels, which kernels K1-K4 read, and
     each plane's content size."""
     b, h, w = imgs.shape
-    levels = pyramid_levels(imgs, oc)
     stack = torch.cat(
         [torch.nn.functional.pad(lv, (0, w - lv.shape[2], 0, h - lv.shape[1]))
-         for lv in levels], dim=0,
+         for lv in pyramid_levels(imgs, oc)], dim=0,
     )
     shapes = pyramid_shapes(h, w, cfg)
-    return levels, stack, [shapes[p // b] for p in range(cfg.n_levels * b)]
+    return stack, [shapes[p // b] for p in range(cfg.n_levels * b)]
 
 
 _BLUR = np.exp(-np.arange(-3, 4) ** 2 / 8.0)
@@ -170,14 +171,14 @@ def ic_angle_sparse(stack: torch.Tensor, base: torch.Tensor, xy: torch.Tensor):
     zero-meaned stack [N, H, W], sampled at the keypoints: per circle row
     the prefix values at the two ends of its segment, 4 x 31 gathered
     elements a keypoint, and no moment map (the decomposition is that of
-    `moments.moment_maps_plain`). base [K]: flat plane offsets (plane * H *
-    W); xy [K, 2]: plane-local pixels, clamped 16 px inside the canvas."""
+    `moments.moment_maps_plain`; the prefix sums and their differences in
+    float64, `moments.prefix_sums`). base [K]: flat plane offsets (plane *
+    H * W); xy [K, 2]: plane-local pixels, clamped 16 px inside the canvas."""
     h, w = stack.shape[-2], stack.shape[-1]
     r_ = moments_mod.PATCH_R
-    stack = moments_mod.zero_mean(stack)
-    xc = torch.arange(w, dtype=stack.dtype, device=stack.device) - w / 2.0
-    p = torch.cumsum(stack, dim=-1).reshape(-1)
-    q = torch.cumsum(stack * xc, dim=-1).reshape(-1)
+    dt = stack.dtype
+    p, q, _ = moments_mod.prefix_sums(moments_mod.zero_mean(stack))
+    p, q = p.reshape(-1), q.reshape(-1)
 
     cx = torch.round(xy[..., 0]).to(torch.int64).clamp(r_ + 1, w - 1 - r_)
     cy = torch.round(xy[..., 1]).to(torch.int64).clamp(r_, h - 1 - r_)
@@ -186,11 +187,12 @@ def ic_angle_sparse(stack: torch.Tensor, base: torch.Tensor, xy: torch.Tensor):
     rows = base[:, None] + (cy[:, None] + dys[None, :]) * w     # [K, 31]
     hi = rows + cx[:, None] + rs[None, :]
     lo = rows + cx[:, None] - rs[None, :] - 1
-    box = p[hi] - p[lo]
-    xck = cx.to(stack.dtype)[:, None] - w / 2.0
-    ramp = (q[hi] - q[lo]) - xck * box
+    box64 = p[hi] - p[lo]
+    xck = cx.to(torch.float64)[:, None] - w / 2.0
+    ramp = ((q[hi] - q[lo]) - xck * box64).to(dt)
+    box = box64.to(dt)
     m10 = ramp.sum(dim=1)
-    m01 = (dys.to(stack.dtype)[None, :] * box).sum(dim=1)
+    m01 = (dys.to(dt)[None, :] * box).sum(dim=1)
     return torch.atan2(m01, m10)
 
 
@@ -230,39 +232,27 @@ def detect(stack: torch.Tensor, bounds, cfg: OrbConfig, k_max: int) -> fast_mod.
         cell=fast_mod.CELL, **select)
 
 
-def _describe_kernel(levels, xy_l, budgets, oc: OrbConstants):
-    """(angle [b * K_tot], desc [b * K_tot, 256]) by kernel K2, level by
-    level on the level's own canvas."""
-    b = levels[0].shape[0]
-    dev = levels[0].device
-    packed_l = []
-    for lvl, kb in enumerate(budgets):
-        plane = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(kb)
-        vals, m10, m01 = sample_mod.sample_patches(
-            levels[lvl].contiguous(), plane, xy_l[lvl].reshape(b * kb, 2).contiguous(),
-            oc.pool_xy,
-        )
-        packed_l.append(
-            torch.cat([vals, m10[:, None], m01[:, None]], 1).reshape(b, kb, -1)
-        )
-    packed = torch.cat(packed_l, dim=1)                    # [b, K_tot, P + 2]
+def _describe_kernel(stack, bounds, xy, budgets, oc: OrbConstants):
+    """(angle [b * K_tot], desc [b * K_tot, 256]) by kernel K2, one launch
+    over the plane stack, each plane reflected at its content edge."""
+    packed = sample_mod.sample_patches(stack, bounds, xy, budgets, oc.pool_xy)
     npool = oc.pool_xy.shape[0]
     ang = torch.atan2(packed[..., npool + 1], packed[..., npool]).reshape(-1)
     diff = packed[..., :npool].reshape(-1, npool) @ oc.diff
     return ang, torch.where(diff > 0, 1, -1).to(torch.int8)
 
 
-def _describe_maps(stack, xy_l, budgets, cfg: OrbConfig, oc: OrbConstants):
+def _describe_maps(stack, xy, budgets, cfg: OrbConfig, oc: OrbConstants):
     """(angle [b * K_tot], desc [b * K_tot, 256]) from the plane stack: the
     angle by `cfg.moments_backend`, the blur of the whole stack, the pool
     gather."""
-    b = xy_l[0].shape[0]
+    b = xy.shape[0]
     _, h, w = stack.shape
     dev = stack.device
     base = torch.cat(
         [((lvl * b + torch.arange(b, device=dev)) * (h * w))[:, None].expand(b, kb)
          for lvl, kb in enumerate(budgets)], dim=1).reshape(-1)
-    xy = torch.cat(xy_l, dim=1).reshape(-1, 2)
+    xy = xy.reshape(-1, 2)
     if cfg.moments_backend == "sparse":
         ang = ic_angle_sparse(stack, base, xy)
     else:
@@ -285,16 +275,16 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig, oc: OrbConstants) -> OrbFe
     nl = cfg.n_levels
     dev = imgs.device
 
-    levels, stack, bounds = plane_stack(imgs, cfg, oc)
+    stack, bounds = plane_stack(imgs, cfg, oc)
     kps = detect(stack, bounds, cfg, budgets[0])
     xy_l = [kps.xy[lvl * b:(lvl + 1) * b, :budgets[lvl]] for lvl in range(nl)]
+    xy = torch.cat(xy_l, dim=1)                           # [b, K_tot, 2]
     if cfg.sample_backend == "pallas":
-        ang, desc = _describe_kernel(levels, xy_l, budgets, oc)
+        ang, desc = _describe_kernel(stack, bounds, xy, budgets, oc)
     elif cfg.sample_backend == "xla":
-        ang, desc = _describe_maps(stack, xy_l, budgets, cfg, oc)
+        ang, desc = _describe_maps(stack, xy, budgets, cfg, oc)
     else:
         raise ValueError(f"sample_backend {cfg.sample_backend!r}")
-    xy = torch.cat(xy_l, dim=1)
     k_tot = xy.shape[1]
 
     score = torch.cat([kps.score[lvl * b:(lvl + 1) * b, :budgets[lvl]]

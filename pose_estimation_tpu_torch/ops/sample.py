@@ -8,11 +8,16 @@ moments m10, m01 over the radius-15 circle, the rotation (cos, sin) =
 rounded half to even and sampled on the 7x7 sigma=2 Gaussian-blurred patch,
 the blur folded into separable taps exp(-d^2/8)/norm. All in float32.
 
-`sample_patches` launches `csrc/sample_patches.cu` on a CUDA tensor and
-runs the twin `sample_patches_plain` only on a CPU tensor.
+`sample_patches` samples every keypoint of every pyramid level in one
+launch of `csrc/sample_patches.cu`, reading the level-major plane stack and
+reflecting at each plane's content edge; on a CPU tensor it runs the
+all-levels twin `sample_stack_plain`, which runs the per-level twin
+`sample_patches_plain` on each plane's content.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,8 +36,9 @@ TAPS = (np.exp(_d * _d * np.float32(-1.0 / 8.0)) * _norm).astype(np.float32)
 
 def sample_patches_plain(canvas: torch.Tensor, plane: torch.Tensor,
                          xy: torch.Tensor, pool_xy: torch.Tensor):
-    """Twin of kernel K2. canvas [N, H, W] f32, plane [K] int, xy [K, 2],
-    pool_xy [P, 2] -> (vals [K, P], m10 [K], m01 [K])."""
+    """Per-level twin of kernel K2. canvas [N, H, W] f32 (the content of N
+    planes), plane [K] int, xy [K, 2], pool_xy [P, 2] -> (vals [K, P],
+    m10 [K], m01 [K])."""
     n, h, w = canvas.shape
     dev, dt = canvas.device, canvas.dtype
     hp, wp = h + 2 * PAD, w + 2 * PAD
@@ -77,42 +83,100 @@ def sample_patches_plain(canvas: torch.Tensor, plane: torch.Tensor,
     return vals, m10, m01
 
 
-def sample_patches(canvas: torch.Tensor, plane: torch.Tensor,
-                   xy: torch.Tensor, pool_xy: torch.Tensor):
-    """Kernel K2: IC moments + rotated, blurred pool-point samples.
+def level_offsets(budgets) -> np.ndarray:
+    """[n_levels + 1] int32: the first slot of each level within an image's
+    K_tot = sum(budgets) keypoint slots (levels in ascending order), then
+    K_tot."""
+    return np.concatenate([[0], np.cumsum(budgets)]).astype(np.int32)
+
+
+def slot_planes(b: int, budgets, device) -> torch.Tensor:
+    """[b * K_tot] int64: the plane of the level-major stack that each
+    keypoint slot lies on, by the kernel's arithmetic: slot t = image *
+    K_tot + k is on level l where off[l] <= k < off[l + 1], plane l * b +
+    image."""
+    off = torch.as_tensor(level_offsets(budgets), device=device, dtype=torch.int64)
+    t = torch.arange(b * int(off[-1]), device=device)
+    image, k = t // off[-1], t % off[-1]
+    level = torch.searchsorted(off[1:], k, right=True)
+    return level * b + image
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_table(budgets: tuple, bounds: tuple):
+    """(table, its address): int32 [n_levels + 1 + 2 * n_planes], the level
+    offsets, then every plane's content height, then its width, as the
+    kernel reads them. Cached per extractor shape: numpy's `.ctypes` costs
+    microseconds of host time on every launch otherwise."""
+    table = np.concatenate([level_offsets(budgets), [d[0] for d in bounds],
+                            [d[1] for d in bounds]]).astype(np.int32)
+    return table, table.ctypes.data
+
+
+_TAPS_PTR = TAPS.ctypes.data
+
+
+def sample_stack_plain(stack: torch.Tensor, bounds, xy: torch.Tensor, budgets,
+                       pool_xy: torch.Tensor) -> torch.Tensor:
+    """Twin of kernel K2 over all levels: `sample_patches_plain` on each
+    plane's content `stack[plane, :lh, :lw]` for the slots on that plane.
+    stack [n_levels * B, H, W], bounds [(lh, lw)] per plane, xy [B, K_tot,
+    2] plane-local, budgets per level -> packed [B, K_tot, P + 2] (the P
+    samples, m10, m01)."""
+    b, k_tot = xy.shape[0], xy.shape[1]
+    n_pool = pool_xy.shape[0]
+    plane = slot_planes(b, budgets, stack.device)
+    xy = xy.reshape(b * k_tot, 2)
+    out = torch.empty((b * k_tot, n_pool + 2), dtype=stack.dtype, device=stack.device)
+    for p, (lh, lw) in enumerate(bounds):
+        sel = torch.nonzero(plane == p).squeeze(1)
+        vals, m10, m01 = sample_patches_plain(
+            stack[p:p + 1, :lh, :lw], torch.zeros_like(sel), xy[sel], pool_xy)
+        out[sel] = torch.cat([vals, m10[:, None], m01[:, None]], 1)
+    return out.reshape(b, k_tot, n_pool + 2)
+
+
+def sample_patches(stack: torch.Tensor, bounds, xy: torch.Tensor, budgets,
+                   pool_xy: torch.Tensor) -> torch.Tensor:
+    """Kernel K2: IC moments + rotated, blurred pool-point samples of every
+    keypoint of every level, one launch. stack [n_levels * B, H, W] (the
+    level-major zero-padded plane stack of `orb.plane_stack`), bounds
+    [(lh, lw)] per plane, xy [B, K_tot, 2] plane-local keypoints, level l
+    owning slots `level_offsets(budgets)[l:l + 2]` of each image, pool_xy
+    [P, 2] -> packed [B, K_tot, P + 2] float32 (the P samples, m10, m01).
 
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_sample.py:
-    _kernel` (via `sample_patches_pallas`). On the H100 it is bound by the
-    per-sample arithmetic (49 taps for each of 256 points, ~25k FMAs per
-    keypoint) on a small, L2-resident gather (a 7.4 KB patch per keypoint);
-    one block per keypoint stages its patch in shared memory once, reduces
-    the moments there and gives each thread one pool point, so nothing but
-    the 258 outputs per keypoint reaches device memory. A CUDA tensor
-    launches the kernel (or raises); a CPU tensor runs the twin."""
-    if not canvas.is_cuda:
-        return sample_patches_plain(canvas, plane, xy, pool_xy)
-    n, h, w = canvas.shape
-    k = xy.shape[0]
-    for name, t, dt in (("canvas", canvas, torch.float32), ("plane", plane, torch.int32),
-                        ("xy", xy, torch.float32), ("pool_xy", pool_xy, torch.float32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != canvas.device:
-            raise ValueError(f"sample_patches: {name} must be contiguous {dt} on {canvas.device}")
-    if plane.shape != (k,) or xy.shape != (k, 2) or pool_xy.ndim != 2 or pool_xy.shape[1] != 2:
+    _kernel` (via `sample_patches_pallas`, called per level). On the H100
+    its bounds (a 7.4 KB gather and ~25k multiply-adds per keypoint) are a
+    few microseconds; what costs is a block's latency and each launch's
+    host work. One block per keypoint stages its patch by rows, sums the
+    moments while staging and reduces them by warp shuffles, then samples
+    one pool point per thread, writing straight into the packed layout. A
+    CUDA tensor launches the kernel (or raises); a CPU tensor runs
+    `sample_stack_plain`."""
+    if not stack.is_cuda:
+        return sample_stack_plain(stack, bounds, xy, budgets, pool_xy)
+    table, table_ptr = _launch_table(tuple(budgets), tuple(bounds))
+    b, k_tot = xy.shape[0], xy.shape[1]
+    for name, t in (("stack", stack), ("xy", xy), ("pool_xy", pool_xy)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != stack.device:
+            raise ValueError(f"sample_patches: {name} must be contiguous float32 on "
+                             f"{stack.device}")
+    n, h, w = stack.shape
+    if (xy.ndim != 3 or xy.shape[2] != 2 or k_tot != table[len(budgets)]
+            or n != len(budgets) * b or len(bounds) != n or pool_xy.ndim != 2
+            or pool_xy.shape[1] != 2):
         raise ValueError("sample_patches: bad shapes")
     n_pool = pool_xy.shape[0]
-    vals = torch.empty((k, n_pool), dtype=torch.float32, device=canvas.device)
-    m10 = torch.empty((k,), dtype=torch.float32, device=canvas.device)
-    m01 = torch.empty_like(m10)
-    if k == 0:
-        return vals, m10, m01
+    out = torch.empty((b, k_tot, n_pool + 2), dtype=torch.float32, device=stack.device)
     err = kernels.library().sample_patches_launch(
-        canvas.data_ptr(), plane.data_ptr(), xy.data_ptr(), pool_xy.data_ptr(),
-        TAPS.ctypes.data, vals.data_ptr(), m10.data_ptr(), m01.data_ptr(),
-        k, n_pool, n, h, w, torch.cuda.current_stream(canvas.device).cuda_stream,
+        stack.data_ptr(), xy.data_ptr(), pool_xy.data_ptr(), _TAPS_PTR, table_ptr,
+        out.data_ptr(), b, k_tot, len(budgets), h, w, n_pool,
+        torch.cuda.current_stream(stack.device).cuda_stream,
     )
     kernels.check(err, "sample_patches")
     sample_patches.launches += 1
-    return vals, m10, m01
+    return out
 
 
 sample_patches.launches = 0

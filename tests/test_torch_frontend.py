@@ -146,6 +146,68 @@ def test_sample_plain_small_plane_reads_zero_fill():
     assert (np.abs(tv - jv) <= 1e-3).mean() >= 0.999
 
 
+# 8 levels of a 160x128 pair at scale 1.2 without the detector's 46-px floor:
+# the top level's padded content (36 + 4 rows) is shorter than a 43-px patch,
+# so its patches read the zero fill
+LEVEL_SHAPES = [(128, 160), (107, 133), (89, 111), (74, 93), (62, 77), (51, 64),
+                (43, 54), (36, 45)]
+LEVEL_BUDGETS = [24, 20, 16, 14, 12, 10, 8, 8]
+
+
+def _level_inputs(seed, b=2):
+    """Content-shaped levels [b, lh, lw], their level-major zero-padded
+    plane stack, the per-plane bounds and level-local keypoints [b, kb, 2]
+    per level (the margins, a .5 rounding and invalid (0, 0) slots
+    included)."""
+    rng = np.random.default_rng(seed)
+    h, w = LEVEL_SHAPES[0]
+    levels, xy_l = [], []
+    for (lh, lw), kb in zip(LEVEL_SHAPES, LEVEL_BUDGETS):
+        levels.append(_stack(int(rng.integers(1 << 30)), b, lh, lw, False))
+        xy = np.stack([rng.uniform(0, lw - 1, (b, kb)), rng.uniform(0, lh - 1, (b, kb))],
+                      -1).astype(F32)
+        xy[:, 0], xy[:, 1], xy[:, 2] = (0, 0), (lw - 1, lh - 1), (lw / 2 + 0.5, 20.5)
+        xy_l.append(xy)
+    stack = np.concatenate([np.pad(lv, ((0, 0), (0, h - lv.shape[1]), (0, w - lv.shape[2])))
+                            for lv in levels])
+    bounds = [shape for shape in LEVEL_SHAPES for _ in range(b)]
+    return levels, stack, bounds, xy_l
+
+
+def test_sample_stack_twin_equals_the_per_level_path():
+    """K2's all-levels entry on a CPU tensor (its twin, `sample_stack_plain`)
+    against the per-level path it replaces: `sample_patches_plain` on each
+    content-shaped level, packed level after level per image. Exactly
+    equal, packed layout included, at 8 levels whose top level reads the
+    zero fill; the plane of each slot is level * B + image; no launch."""
+    levels, stack, bounds, xy_l = _level_inputs(0)
+    b = levels[0].shape[0]
+    pool = _t(tbrief.POOL_POINTS.astype(F32))
+    assert LEVEL_SHAPES[-1][0] + 2 * tsample.PAD < tsample.PS
+    ref = []
+    for lv, xy in zip(levels, xy_l):
+        kb = xy.shape[1]
+        vals, m10, m01 = tsample.sample_patches_plain(
+            _t(lv), torch.arange(b).repeat_interleave(kb), _t(xy.reshape(b * kb, 2)), pool)
+        ref.append(torch.cat([vals, m10[:, None], m01[:, None]], 1).reshape(b, kb, -1))
+    ref = torch.cat(ref, dim=1)
+    before = tsample.sample_patches.launches
+    got = tsample.sample_patches(_t(stack), bounds, _t(np.concatenate(xy_l, 1)),
+                                 LEVEL_BUDGETS, pool)
+    assert tsample.sample_patches.launches == before
+    assert got.shape == (b, sum(LEVEL_BUDGETS), len(pool) + 2)
+    assert torch.equal(got, ref)
+    expect = np.concatenate([np.full(kb, lvl * b + i) for i in range(b)
+                             for lvl, kb in enumerate(LEVEL_BUDGETS)])
+    np.testing.assert_array_equal(tsample.slot_planes(b, LEVEL_BUDGETS, "cpu").numpy(), expect)
+    # the table the CUDA wrapper hands the kernel: level offsets, then the
+    # planes' content heights and widths
+    table, _ = tsample._launch_table(tuple(LEVEL_BUDGETS), tuple(bounds))
+    n_lv = len(LEVEL_BUDGETS)
+    np.testing.assert_array_equal(table[:n_lv + 1], np.cumsum([0] + LEVEL_BUDGETS))
+    np.testing.assert_array_equal(table[n_lv + 1:].reshape(2, -1).T, bounds)
+
+
 def test_brief_pattern_copy_equals_jax():
     np.testing.assert_array_equal(tbrief.POOL_POINTS, jbrief.POOL_POINTS)
     np.testing.assert_array_equal(tbrief.POOL_PAIRS, jbrief.POOL_PAIRS)
@@ -370,14 +432,36 @@ def test_fast_select_kernel_matches_twin_on_gpu(gpu):
 
 @pytest.mark.cuda
 def test_sample_patches_kernel_matches_twin_on_gpu(gpu):
-    stack, plane, xy = _sample_inputs()
-    args = [_t(a).to(gpu) for a in (stack, plane, xy, tbrief.POOL_POINTS.astype(F32))]
+    """K2 over all 8 levels in one launch against its all-levels twin:
+    moments within 1e-5 of the largest (float32 sums in another order),
+    samples within 1e-3 on >= 99.9 % (a rounded sample point can flip at
+    .5 when the rotation rounds apart)."""
+    _, stack, bounds, xy_l = _level_inputs(1)
+    args = (_t(stack).to(gpu), bounds, _t(np.concatenate(xy_l, 1)).to(gpu), LEVEL_BUDGETS,
+            _t(tbrief.POOL_POINTS.astype(F32)).to(gpu))
     before = tsample.sample_patches.launches
     got = tsample.sample_patches(*args)
-    ref = tsample.sample_patches_plain(*args)
+    ref = tsample.sample_stack_plain(*args)
     torch.cuda.synchronize()
     assert tsample.sample_patches.launches == before + 1
-    scale = ref[1].abs().max()
-    assert (got[1] - ref[1]).abs().max() <= 1e-5 * scale
-    assert ((got[0] - ref[0]).abs() <= 1e-3).float().mean() >= 0.999
+    n_pool = args[4].shape[0]
+    scale = ref[..., n_pool:].abs().max()
+    assert (got[..., n_pool:] - ref[..., n_pool:]).abs().max() <= 1e-5 * scale
+    assert ((got[..., :n_pool] - ref[..., :n_pool]).abs() <= 1e-3).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_extract_batch_launches_sample_patches_once_on_gpu(gpu):
+    """ORB extraction of a stereo pair on the kernel path: one K2 launch for
+    all 8 levels of both images."""
+    from pose_estimation_tpu_torch.ops import orb as torb
+
+    cfg = torb.OrbConfig(n_features=300)
+    oc = torb.build_orb_constants(128, 160, cfg, gpu)
+    imgs = _t(_stack(3, 2, 128, 160, False)).to(gpu)
+    before = tsample.sample_patches.launches
+    feats = torb.extract_batch(imgs, cfg, oc)
+    torch.cuda.synchronize()
+    assert tsample.sample_patches.launches == before + 1
+    assert bool(torch.isfinite(feats.angle).all())
 

@@ -74,8 +74,9 @@ def _well_conditioned(m10, m01, plane, xy):
 def test_moment_maps_plain_matches_jax_integral(kind):
     """K4's twin against `orb.moment_maps_integral`, on the whole map (the
     15-px border included: both read zeros beyond the canvas): within 1e-4
-    of the plane's largest |moment| (the same sequential float32 prefix
-    sums and shifted adds; measured ~1e-7)."""
+    of the plane's largest |moment| (the same prefix sums and shifted adds,
+    the port's prefix sums and differences in float64, the JAX package's
+    in float32; measured ~2e-6)."""
     stack = _stack(kind)
     j10, j01 = (np.asarray(a) for a in jorb.moment_maps_integral(jnp.asarray(stack)))
     t10, t01 = (a.numpy() for a in tmoments.moment_maps_plain(_t(stack)))
@@ -109,7 +110,8 @@ def test_moment_maps_plain_matches_pallas_interpret_at_the_angles(kind):
 def test_ic_angles_match_jax(kind):
     """`ic_angle_sparse` and `ic_angle_integral` (on the twin's maps)
     against their JAX functions: within 1e-4 rad where the moment vector is
-    not tiny (the same float32 operations up to atan2's last bits)."""
+    not tiny (the same operations, the port's prefix sums in float64, the
+    JAX package's in float32; measured ~3e-5 rad at this width)."""
     stack = _stack(kind)
     n, h, w = stack.shape
     plane, xy, base = _keypoints(7, n, h, w)
@@ -128,6 +130,48 @@ def test_ic_angles_match_jax(kind):
     assert _wrap(t_int - j_int)[keep].max() < 1e-4
     # the two formulations agree with each other as the JAX ones do
     assert _wrap(t_sparse - t_int)[keep].max() < 2e-3
+
+
+def _patch_angles_f64(stack, plane, xy):
+    """Oracle: the intensity-centroid angle and moment length summed
+    directly in float64 over the radius-15 circle of the zero-meaned plane
+    (zeros beyond the canvas) at the rounded keypoints."""
+    r = tmoments.PATCH_R
+    j = stack.astype(np.float64)
+    j = np.pad(j - j.mean(axis=(1, 2), keepdims=True), ((0, 0), (r, r), (r, r)))
+    d = np.arange(-r, r + 1)
+    circ = d[:, None] ** 2 + d[None, :] ** 2 <= r * r
+    w10, w01 = np.where(circ, d[None, :], 0), np.where(circ, d[:, None], 0)
+    cx, cy = np.round(xy[:, 0]).astype(int), np.round(xy[:, 1]).astype(int)
+    patches = np.stack([j[p, y:y + 2 * r + 1, x:x + 2 * r + 1]
+                        for p, x, y in zip(plane, cx, cy)])
+    m10, m01 = (patches * w10).sum((1, 2)), (patches * w01).sum((1, 2))
+    return np.arctan2(m01, m10), np.hypot(m10, m01)
+
+
+def test_ic_angles_at_kitti_width_match_the_float64_patch_oracle():
+    """At 1242 px a float32 prefix sum over the whole row reaches ~1e7, and
+    its rounding moved the angles by 3.2e-3 rad in sequential float32 sums
+    (the JAX package's XLA form: 6.3e-3). The port takes the prefix sums
+    and their differences in float64, so both forms come within 1e-4 rad
+    of the float64 patch sums (measured ~3e-6) on a simulator pyramid at
+    KITTI width, where the moment vector is not tiny."""
+    cfg = jsim.sim_config(width=1242, height=375)
+    imgs = np.stack(jsim.StereoInertialSim(cfg, n_landmarks=150, seed=0).render(0.1))
+    ocfg = torb.OrbConfig(n_levels=2)
+    oc = torb.build_orb_constants(375, 1242, ocfg, "cpu")
+    stack, _ = torb.plane_stack(_t(imgs.astype(F32)), ocfg, oc)
+    n, h, w = stack.shape
+    plane, xy, base = _keypoints(7, n, h, w)
+    ref, mag = _patch_angles_f64(stack.numpy(), plane, xy)
+    keep = mag >= MIN_MOMENT * mag.max()
+    assert keep.sum() > 50
+    sparse = torb.ic_angle_sparse(stack, _t(base), _t(xy)).numpy()
+    m10, m01 = tmoments.moment_maps_plain(stack)
+    integral = tmoments.ic_angle_integral(m10.reshape(-1), m01.reshape(-1), _t(base), _t(xy),
+                                          h, w).numpy()
+    assert _wrap(sparse - ref)[keep].max() < 1e-4
+    assert _wrap(integral - ref)[keep].max() < 1e-4
 
 
 def test_gaussian_blur7_matches_jax():
