@@ -8,14 +8,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the five CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
 checks each against its torch twin at the shapes the main paths give it,
 timing each by CUDA events and by the profiler's device time: K1 (FAST
-select) at EuRoC scale (752x480 stereo, 8 levels, 800 features), K2
-(descriptor sampler, one launch over every level of the pair) there and at
-KITTI width, K3 (FAST score + NMS) at KITTI width (1242x375, 8 levels), K4
-(circular moment maps) on both plane stacks, also against the 31x31
-convolution that computes the same maps, with the map front end's sparse
-and integral angles held to the float64 ones, and K5 (stream probe) over
-its sweep of plane counts, heights and element types. Then it drives, each
-with the kernel counts set to 0 just before and read just after:
+select) at EuRoC scale (752x480 stereo, 8 levels, 800 features) and on the
+accuracy protocol's 320x240 stack, its bound counted over the planes'
+content, K2 (descriptor sampler, one launch over every level of the pair)
+there and at KITTI width, K3 (FAST score + NMS) at KITTI width (1242x375,
+8 levels), K4 (circular moment maps) on both plane stacks, also against
+the 31x31 convolution that computes the same maps and beside its own count
+of shared-memory traffic, with the map front end's sparse and integral
+angles held to the float64 ones, and K5 (stream probe) over its sweep of
+plane counts, heights and element types. Then it drives, each with the
+kernel counts set to 0 just before and read just after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
   the true pose: finite state, non-negative BA cost, tracking and BA alive
@@ -98,6 +100,11 @@ K4_MIN_MOMENT = 1e-3   # keypoints with a shorter moment vector (of the plane's
 # a box difference, a ramp difference and its multiply-add (30), and the
 # 31-row accumulation (31 adds, 30 multiply-adds)
 K4_OPS_PER_PX = 3 + 30 + 61
+# Shared memory moves 128 bytes a clock on each SM: 132 SMs at 1.98 GHz.
+# K4's own count of its shared-memory bytes (`moment_maps_smem_bytes`, from
+# the constants of csrc/moment_maps.cu) over this rate is a model of the
+# kernel, printed beside its measured time.
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 # EuRoC run: a divergence guard, not an accuracy gate. The seeded slice at
 # this scale tracks 5-35 features per frame in both packages and drifts by
 # decimetres to metres (PERF.md); a run that diverges (an indefinite
@@ -400,6 +407,32 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     return sum(e.device_time for e in hits) / 1e3 / reps
 
 
+def check_select(select_args, label):
+    """K1 against its twin on the card: scores and codes bit-equal,
+    subpixel x, y within K1_TOL_XY on the valid slots. Returns (outputs,
+    valid slots, largest subpixel error)."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import fast
+
+    out, twin = fast.fast_select(*select_args), fast.select_plain(*select_args)
+    torch.cuda.synchronize()
+    ok = twin[0] > -5e8
+    if not (torch.equal(out[0], twin[0]) and torch.equal(out[1], twin[1])):
+        fail(f"fast_select ({label}): scores or codes differ from the twin")
+    xy_err = max(float((out[2] - twin[2])[ok].abs().max()),
+                 float((out[3] - twin[3])[ok].abs().max()))
+    if xy_err > K1_TOL_XY:
+        fail(f"fast_select ({label}): subpixel error {xy_err} > {K1_TOL_XY}")
+    return out, ok, xy_err
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b| of its plane, worst plane."""
+    scale = b.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    return float(((a - b).abs() / scale).max())
+
+
 def kernel_result(err, ms, dev_ms, plain_ms, bound_ms_by, lib_ms=None, **extra) -> dict:
     """One kernel's record: its largest error against the twin, event and
     device ms, the twin's ms, the bound (ms, "bytes" or "operations"), the
@@ -418,8 +451,8 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
 
     from pose_estimation_tpu_torch.camera import CameraModel
     from pose_estimation_tpu_torch.models import vio
-    from pose_estimation_tpu_torch.ops import fast, moments, orb, probe, sample
-    from pose_estimation_tpu_torch.testing import StereoInertialSim
+    from pose_estimation_tpu_torch.ops import fast, kernels, moments, orb, probe, sample
+    from pose_estimation_tpu_torch.testing import StereoInertialSim, protocol_world
 
     res = {}
     consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), dev)
@@ -427,30 +460,47 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
     imgs = torch.from_numpy(frame).to(dev)
     stack, bounds = orb.plane_stack(imgs, ocfg, oc)
     args = (stack, bounds, ocfg.th_hi, ocfg.th_lo, orb.EDGE, ocfg.k_per_cell)
-    got = fast.fast_select(*args)
-    ref = fast.select_plain(*args)
-    torch.cuda.synchronize()
-    valid = ref[0] > -5e8
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        fail("fast_select: scores or codes differ from the twin")
-    k1_err = max(float((got[2] - ref[2])[valid].abs().max()),
-                 float((got[3] - ref[3])[valid].abs().max()))
-    if k1_err > K1_TOL_XY:
-        fail(f"fast_select: subpixel error {k1_err} > {K1_TOL_XY}")
-    # bytes: the stack read once, the four [N, C] outputs written once;
-    # instructions: FAST + NMS per pixel, plus the border/threshold gates
-    # and the per-cell top-4 (8 compares a pixel)
+
+    got, valid, k1_err = check_select(args, "EuRoC stack")
+    # bytes: each plane's content read once (no keypoint can lie in the
+    # stack's zero padding), the four [N, C] outputs written once;
+    # instructions: FAST + NMS per content pixel, plus the border/threshold
+    # gates and the per-cell top-4 (8 compares a pixel). The count over the
+    # whole canvas is printed beside it.
+    content = sum(lh * lw for lh, lw in bounds)
+    out_bytes = sum(a.numel() * 4 for a in got)
+    canvas_bound = bound(stack.numel() * 4 + out_bytes, stack.numel() * (FAST_OPS_PER_PX + 8))
+    plan = fast.select_plan(*stack.shape[1:], bounds, orb.EDGE)
     res["fast_select"] = kernel_result(
         k1_err, cuda_ms(lambda: fast.fast_select(*args)),
         device_ms(lambda: fast.fast_select(*args), "fast_select_kernel"),
         cuda_ms(lambda: fast.select_plain(*args), reps=5, warm=1),
-        bound(stack.numel() * 4 + sum(a.numel() * 4 for a in got),
-              stack.numel() * (FAST_OPS_PER_PX + 8)))
+        bound(content * 4 + out_bytes, content * (FAST_OPS_PER_PX + 8)))
     r = res["fast_select"]
     print(f"K1 fast_select [{tuple(stack.shape)}]: {int(valid.sum())} candidates, "
           f"scores/codes exact, max |dxy| {k1_err:.3g} px; kernel {r['ms']:.4f} ms "
           f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound']:.4f} ms ({r['by']})")
+          f"bound {r['bound']:.4f} ms ({r['by']}) over the content's {content} px, "
+          f"{canvas_bound[0]:.4f} ms ({canvas_bound[1]}) over the canvas's {stack.numel()}; "
+          f"{plan.first[-1]} work blocks of {plan.first[-1] + len(bounds)} launched")
+
+    # K1 on the accuracy protocol's stack (320x240, 4 levels): the same
+    # checks at the shape of the state machine's runs
+    pcfg, pworld, _, _ = protocol_world("A2")
+    pconsts, pstatic = vio.build_constants(pcfg, CameraModel.from_config(pcfg), dev)
+    pstack, pbounds = orb.plane_stack(torch.from_numpy(np.stack(pworld.render(1.0))).to(dev),
+                                      pstatic.orb, pconsts.orb)
+    pargs = (pstack, pbounds, pstatic.orb.th_hi, pstatic.orb.th_lo, orb.EDGE,
+             pstatic.orb.k_per_cell)
+    _, pvalid, p_err = check_select(pargs, "protocol stack")
+    pwork = fast.select_plan(*pstack.shape[1:], pbounds, orb.EDGE).first[-1]
+    r["protocol"] = dict(err=p_err, ms=cuda_ms(lambda: fast.fast_select(*pargs)),
+                         device_ms=device_ms(lambda: fast.fast_select(*pargs),
+                                             "fast_select_kernel"))
+    print(f"K1 fast_select [{tuple(pstack.shape)}] (protocol): {int(pvalid.sum())} candidates, "
+          f"scores/codes exact, max |dxy| {p_err:.3g} px; kernel {r['protocol']['ms']:.4f} ms "
+          f"(device {r['protocol']['device_ms']:.4f}); {pwork} work blocks of "
+          f"{pwork + len(pbounds)} launched")
 
     # plane top-k: stable sort and first-index argmin on CUDA as on the CPU
     budgets = orb.level_budgets(ocfg)
@@ -563,11 +613,6 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
         return torch.nn.functional.conv2d(moments.zero_mean(st)[:, None], masks,
                                           padding=moments.PATCH_R)
 
-    def rel_err(a, b):
-        """max |a - b| over the largest |b| of its plane, worst plane."""
-        scale = b.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
-        return float(((a - b).abs() / scale).max())
-
     k4 = {}
     for name, st, kp in (("euroc", stack, kps), ("kitti", kstack, kkps)):
         n, h, w = st.shape
@@ -624,6 +669,7 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
             lib_ms=cuda_ms(lambda: conv_moments(st), reps=5, warm=1),
             angle_err=ang_err, twin_angle_err=ang_twin, sparse_angle_err=ang_sparse)
         r = k4[name]
+        smem = kernels.library().moment_maps_smem_bytes(n, h, w)
         print(f"K4 moment_maps [{tuple(st.shape)}]: {err:.3g} of the largest |moment| from "
               f"the twin (tolerance {K4_TOL_MOM}), {err64:.3g} from the twin in float64 "
               f"(the float32 twin: {twin64:.3g}), conv2d {lib_err:.3g} from the twin; "
@@ -632,7 +678,9 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
               f"integral form {ang_twin:.3g}, the sparse form {ang_sparse:.3g} (tolerance "
               f"{MAP_TOL_ANGLE}); kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
               f"plain {r['plain_ms']:.4f} ms, conv2d {r['lib_ms']:.4f} ms, "
-              f"bound {r['bound']:.4f} ms ({r['by']})")
+              f"bound {r['bound']:.4f} ms ({r['by']}); its own count of shared-memory "
+              f"traffic {smem / st.numel():.1f} bytes a pixel, modelled at 128 bytes a clock "
+              f"per SM {smem / SMEM_BYTES_PER_S * 1e3:.4f} ms")
         del g10, g01, r10, r01, d10, d01, lib
     res["moment_maps"] = dict(k4["euroc"], kitti_width=k4["kitti"])
 
@@ -1003,7 +1051,7 @@ def main() -> None:
          "max_abs_err": k[name]["err"], "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
          "bound_ms": k[name]["bound"], "bound_by": k[name]["by"],
          "library_ms": k[name]["lib_ms"], "device_ms": k[name]["device_ms"],
-         **({"kitti_width": k[name]["kitti_width"]} if "kitti_width" in k[name] else {})}
+         **{key: k[name][key] for key in ("kitti_width", "protocol") if key in k[name]}}
         for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
         "kitti_ms_per_ok_frame": kitti_ms}

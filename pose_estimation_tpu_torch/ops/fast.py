@@ -25,6 +25,7 @@ y * W + x [N, C] int32 (invalid 0), subpixel x, y [N, C] (invalid 0).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +36,8 @@ from pose_estimation_tpu_torch.ops import kernels
 NEG = -1e9
 CELL = 16
 BAND = 32   # the cell-row count follows the TPU kernel's 32-row bands
+TILE_CELLS = 8            # K1's blocks are BAND x TILE_W
+TILE_W = CELL * TILE_CELLS
 
 # Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx).
 CIRCLE = (
@@ -151,16 +154,65 @@ def select_plain(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     return vals, codes, xs, ys
 
 
+class SelectPlan(NamedTuple):
+    """Kernel K1's launch plan for one stack shape and set of bounds: per
+    plane the rectangle of 32-row x 128-column blocks [band0, band0 +
+    bands) x [tile0, tile0 + tiles) that hold a pixel inside the detection
+    border, and the first work block of each plane (then the total)."""
+
+    band0: tuple
+    bands: tuple
+    tile0: tuple
+    tiles: tuple
+    first: tuple
+
+
+def select_plan(h: int, w: int, bounds, border: int = 19) -> SelectPlan:
+    """K1's work blocks: block (band, tile) of a plane with content (lh,
+    lw) does work iff it holds a pixel with border <= y < lh - border and
+    border <= x < lw - border, the only pixels whose slots can be valid.
+    Every other cell's slots are written invalid by the plane's fill
+    block."""
+    n_bands, n_tiles = -(-h // BAND), -(-(w // CELL) // TILE_CELLS)
+    band0, bands, tile0, tiles, first = [], [], [], [], [0]
+    for lh, lw in bounds:
+        b0, t0 = border // BAND, border // TILE_W
+        nb = min(n_bands, -(-(lh - border) // BAND)) - b0
+        nt = min(n_tiles, -(-(lw - border) // TILE_W)) - t0
+        if lh - border <= border or lw - border <= border:
+            nb = nt = 0
+        band0.append(b0)
+        tile0.append(t0)
+        bands.append(nb)
+        tiles.append(nt)
+        first.append(first[-1] + nb * nt)
+    return SelectPlan(tuple(band0), tuple(bands), tuple(tile0), tuple(tiles), tuple(first))
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_table(h: int, w: int, bounds: tuple, border: int):
+    """(table, its address): int32 [7 * n + 1], the planes' content heights
+    and widths, then `select_plan`'s fields, as the kernel's launcher reads
+    them. Cached per stack shape and bounds: no numpy work per launch."""
+    plan = select_plan(h, w, bounds, border)
+    table = np.concatenate([[b[0] for b in bounds], [b[1] for b in bounds], *plan]).astype(
+        np.int32)
+    return table, table.ctypes.data
+
+
 def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
                 border: int = 19, k_per_cell: int = 4):
     """Kernel K1: fused FAST + NMS + gates + per-cell top-k + subpixel.
 
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
     _select_kernel` (via `fast_select_pallas`). On the H100 it is bound by
-    the per-pixel stencil arithmetic (~120 ALU operations per 4-byte
-    pixel, most of them min/max); the kernel stages a 16 x 128 tile with
-    its halo in shared memory, scores it once and selects with one warp per
-    cell, so only the selected slots reach device memory. A CUDA tensor launches the
+    the per-pixel stencil arithmetic (~127 float32 instructions a pixel of
+    the planes' content, most of them min/max). One launch: a fill block
+    per plane writes the invalid slots of the cells outside the plane's
+    work rectangle (`select_plan`), and one block per 32 x 128 tile of the
+    rectangles stages it with its halo in shared memory, scores it a
+    column per thread, gates it and selects with one warp per cell, so
+    only the selected slots reach device memory. A CUDA tensor launches the
     kernel (or raises); a CPU tensor runs `select_plain`."""
     if not stack.is_cuda:
         return select_plain(stack, bounds, th_hi, th_lo, border, k_per_cell)
@@ -170,6 +222,7 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     if w % CELL or len(bounds) != n:
         # other widths take K3 (`orb.extract_batch`)
         raise ValueError(f"bad shape {tuple(stack.shape)} / {len(bounds)} bounds")
+    _, table_ptr = _launch_table(h, w, tuple(bounds), int(border))
     ncr = -(-h // BAND) * BAND // CELL
     ncx = w // CELL
     c = ncr * ncx * k_per_cell
@@ -177,13 +230,11 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     codes = torch.empty((n, c), dtype=torch.int32, device=stack.device)
     xs = torch.empty_like(vals)
     ys = torch.empty_like(vals)
-    lh = np.ascontiguousarray([b[0] for b in bounds], np.int32)
-    lw = np.ascontiguousarray([b[1] for b in bounds], np.int32)
     err = kernels.library().fast_select_launch(
-        stack.data_ptr(), lh.ctypes.data, lw.ctypes.data,
+        stack.data_ptr(), table_ptr,
         vals.data_ptr(), codes.data_ptr(), xs.data_ptr(), ys.data_ptr(),
         n, h, w, ncr, ncx, float(th_hi), float(th_lo), int(border),
-        int(k_per_cell), torch.cuda.current_stream(stack.device).cuda_stream,
+        int(k_per_cell), BAND, TILE_W, torch.cuda.current_stream(stack.device).cuda_stream,
     )
     kernels.check(err, "fast_select")
     fast_select.launches += 1

@@ -101,13 +101,16 @@ def moment_maps(stack: torch.Tensor):
 
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
     _moments_kernel` (via `moment_maps_pallas`). On the H100 it is bound by
-    its bytes (4 read and 8 written per pixel against ~95 float32
-    instructions); one block stages a 32-row x 128-column tile with its
-    15-row and 16-column halo in shared memory, subtracting the plane mean
-    on the way in, scans the rows there and accumulates the 31 rows, so only
-    the two maps reach device memory. The plane means are one torch
-    reduction before the launch. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor runs `moment_maps_plain`."""
+    its shared-memory traffic and staging, not its bytes of device memory
+    (4 read and 8 written per pixel): one block of 128 threads owns a
+    130-row x 128-column tile and streams its rows, with the 15-row and
+    16-column halo, through shared memory in 32-row chunks, subtracting
+    the plane mean on the way in and scanning each row there; each thread
+    walks down one column, forms each staged row's 10 radius windows once
+    and adds them into the 31 output rows that use it, held in registers,
+    so only the two maps reach device memory. The plane means are one
+    torch reduction before the launch. A CUDA tensor launches the kernel
+    (or raises); a CPU tensor runs `moment_maps_plain`."""
     if not stack.is_cuda:
         return moment_maps_plain(stack)
     if stack.dtype != torch.float32 or not stack.is_contiguous() or stack.ndim != 3:

@@ -235,6 +235,66 @@ def test_moment_maps_plain_equals_the_direct_circle_sums():
     assert (t01 - d01).abs().max() <= 1e-5 * d01.abs().max()
 
 
+def _kernel_tile_sums(stack):
+    """Plain float32 emulation of kernel K4's sums: for each 128-column
+    tile, row prefix sums of the zero-meaned plane over the tile's 160
+    staged columns (16 on each side, zeros beyond the canvas), x-weights
+    centred on staged column 80, taken in the kernel's order (each of 32
+    lanes sums 5 consecutive columns, the lane totals are scanned in log
+    steps, each lane adds the total of the lanes before it); then the 10
+    radii's box and ramp windows and each output row's sum over dy = -15 ..
+    15 in that order."""
+    f32 = np.float32
+    n, h, w = stack.shape
+    r_ = tmoments.PATCH_R
+    tiles = -(-w // 128)
+    j = np.zeros((n, h + 2 * r_, tiles * 128 + 32), f32)
+    j[:, r_:r_ + h, 16:16 + w] = stack - stack.astype(np.float64).mean(axis=(1, 2),
+                                                                      keepdims=True).astype(f32)
+    col = np.arange(160)
+    m10, m01 = np.zeros((n, h, tiles * 128), f32), np.zeros((n, h, tiles * 128), f32)
+    for t in range(tiles):
+        v = j[:, :, 128 * t:128 * t + 160]
+        sums = []
+        for x in (v, v * (col - 80).astype(f32)):
+            local = np.add.accumulate(x.reshape(n, h + 2 * r_, 32, 5), axis=-1, dtype=f32)
+            tot = local[..., -1]
+            for o in (1, 2, 4, 8, 16):
+                tot = np.concatenate([tot[..., :o], tot[..., o:] + tot[..., :-o]], axis=-1)
+            excl = np.concatenate([np.zeros_like(tot[..., :1]), tot[..., :-1]], axis=-1)
+            sums.append((local + excl[..., None]).reshape(n, h + 2 * r_, 160))
+        pp, qq = sums
+        c = np.arange(16, 144)
+        xc = (c - 80).astype(f32)
+        for k, (dy, rad) in enumerate(zip(tmoments.DYS.tolist(), tmoments.RS.tolist())):
+            rows = slice(k, k + h)
+            box = pp[:, rows, c + rad] - pp[:, rows, c - rad - 1]
+            ramp = (qq[:, rows, c + rad] - qq[:, rows, c - rad - 1]) - xc * box
+            m10[..., 128 * t:128 * t + 128] += ramp
+            if dy:
+                m01[..., 128 * t:128 * t + 128] += f32(dy) * box
+    return m10[..., :w], m01[..., :w]
+
+
+@pytest.mark.parametrize("w,h", [(752, 480), (1242, 375)])
+def test_kernel_tile_sums_hold_the_float64_moments(w, h):
+    """K4's precision argument without the card: its tile-local float32
+    prefix sums, in its scan order, stay within 2e-5 of the plane's largest
+    |moment| of the float64 twin (chip_smoke's K4_TOL_MOM_F64) on a
+    simulator frame and its next pyramid level, at EuRoC and KITTI width,
+    where float32 sums over whole rows lost up to 7e-3 rad."""
+    cfg = jsim.sim_config(width=w, height=h)
+    imgs = np.stack(jsim.StereoInertialSim(cfg, n_landmarks=150, seed=0).render(0.1))
+    ocfg = torb.OrbConfig(n_levels=2)
+    stack, _ = torb.plane_stack(_t(imgs.astype(F32)), ocfg, torb.build_orb_constants(h, w, ocfg,
+                                                                                     "cpu"))
+    g10, g01 = _kernel_tile_sums(stack.numpy())
+    d10, d01 = (a.numpy() for a in tmoments.moment_maps_plain(stack.double()))
+    for got, ref in ((g10, d10), (g01, d01)):
+        scale = np.abs(ref).reshape(len(ref), -1).max(1)[:, None, None]
+        assert (np.abs(got - ref) <= 2e-5 * scale).all(), (np.abs(got - ref) / scale).max()
+
+
 # ---- on the card: the CUDA kernel against its twin (skipped without a GPU)
 
 
@@ -246,11 +306,13 @@ def gpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 120, 160), (3, 75, 1242)])
+@pytest.mark.parametrize("shape", [(4, 120, 160), (3, 75, 1242), (2, 131, 300),
+                                   (16, 480, 752), (16, 375, 1242)])
 def test_moment_maps_kernel_matches_twin_on_gpu(gpu, shape):
     """K4 against its twin on the whole map, within 1e-3 of the plane's
     largest |moment| (the kernel sums over its tile, the twin over whole
-    rows)."""
+    rows): small stacks, widths and heights that are not multiples of the
+    kernel's 128 x 130 tile, and the EuRoC- and KITTI-width stacks."""
     stack = _t(np.random.default_rng(2).uniform(0, 255, shape).astype(F32)).to(gpu)
     before = tmoments.moment_maps.launches
     got = tmoments.moment_maps(stack)
