@@ -48,12 +48,22 @@ kernel counts set to 0 just before and read just after:
   passes must not fall short of the JAX package's measured pass rate
   (fail when, at that rate, so few passes would come with probability
   below 5 %). Seed 0's runs are printed beside the JAX package's record.
-  Two more runs share the workers: world A2 on the map-based front end
-  (K4 launched once per extraction, K2 never) and the KITTI-width rig with
+  Three more runs share the workers: world A2 on the map-based front end
+  (K4 launched once per extraction, K2 never), world A2 with the P3P
+  bootstrap (`solve_pnp=2`) and the KITTI-width rig with
   `rectify_mode="dense"` (K3 and K2 once per extraction, never K1). Each
   must reach OK, stay
   finite, under 2 x distance + 1 m and under 3 x each gate; whether it
-  passes the gates is printed.
+  passes the gates is printed;
+- many sequences in one frame step (`parallel.batched`): K1, K2, K3 and
+  K4 on the plane stack of 8 EuRoC-width stereo pairs (128 planes, one
+  launch each) against their twins, 8 chained batched frames of 8 lanes
+  (lane j replaying from frame j) with one extraction and one K1 and K2
+  launch a frame, under the divergence guard (at least half the lanes
+  within 2 x distance + 1 m, none beyond + 10 m), the second frame run
+  again per lane against the single-sequence `ok_step` from the same
+  state and uniforms, and a checkpoint in the middle of a state-machine
+  run on the card that the resumed object must continue identically.
 
 Any failure exits non-zero. The second-to-last line is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}. Imports
@@ -125,10 +135,41 @@ RUNAWAY_M = 10.0
 # PRNGKey(1000 * seed + frame)), and the bound on the port's median (the
 # CPU test tests/test_torch_vio_mid.py holds the port's CPU path to the
 # same ratio against the JAX package run live).
+# A checkpoint in the middle of a run on the card (protocol world A2): saved
+# at RESUME_AT s, the resumed object and the original run on to RESUME_END
+# s and must agree within RESUME_TOL.
+RESUME_AT, RESUME_END, RESUME_TOL = 1.5, 2.5, 1e-6
+
 MID = dict(width=384, height=240, levels=8, features=400)
 MID_FRAMES, MID_SEEDS, MID_LANDMARKS = 8, 16, 400
 JAX_MID_MEDIAN_M = 0.1384
 MID_RATIO = 1.5
+# The batched phase: B sequences of the EuRoC-width world, lane j seeded at
+# frame j's true state and replaying from frame j (bench.py's protocol),
+# BATCH_FRAMES chained batched frames. The second is then run again with
+# the LM capped at HELD_LM_ITERS (on the seeded window the production
+# cap's solve is ill posed, tests/test_torch_vio.py) and held lane by lane:
+# (1) bit for bit against the same lane in a batch of B copies of itself,
+# so a lane depends on its own data alone; (2) against the single-sequence
+# `ok_step` from the same state and uniforms. A lane agrees with its single
+# step when its counts and LM iterations are equal and its newest position
+# within BATCH_TOL_P; at least BATCH_MIN_AGREE lanes must, and every lane
+# must stay within BATCH_LOOSE_P. (1) once failed: a lane's sum over its 801
+# features depended on its place in the batch (`ops/ransac.py:_row_sum`).
+# (2) still differs because a batched product picks its kernel, and so its
+# order of summation, by the batch size: the first output to differ on
+# identical inputs is a 3x3 product of the IMU preintegration, bit-equal
+# alone and under vmap at batch 1, 4.7e-10 off at batch 8; the first
+# decision to differ is a pivot of the fundamental RANSAC's elimination,
+# over ~10 matches (ROADMAP C7). Over 40 lane-frames (B = 8, frames 1-5,
+# tools/lane_diff.py on the card, PERF.md) 25 agreed, at worst 3 of 8 in a
+# frame, and a position moved at most 0.140 m; the bounds leave room below
+# and above those readings.
+BATCH, BATCH_FRAMES = 8, 8
+HELD_LM_ITERS = 4
+BATCH_TOL_P = 1e-3      # m, as tests/test_torch_vio.py holds the port to JAX
+BATCH_MIN_AGREE = 2
+BATCH_LOOSE_P = 0.3     # m
 # KITTI width: ORB-SLAM2's KITTI settings (2000 features, 8 levels, scale
 # 1.2, FAST 20/7) on the simulator's rig at 1242x375 with the kitti
 # profile; IMU noise densities in that profile's units, equal in discrete
@@ -148,6 +189,9 @@ HARD_RUNS = ("B0", "B1", "A2")
 # float32 on a CPU, the sampler kernel in interpret mode: A0 keys 0-46, A1
 # keys 0-7). The run set fails when, at that rate, as few passes as it
 # made would come with probability below RATE_ALPHA.
+# Runs beside the protocol's, held like the map front end's A2: the
+# KITTI-width rig in dense mode and world A2 with the P3P bootstrap.
+EXTRA_RUNS = ("KITTI-dense", "A2-p3p")
 RATE_RUNS = {"A0": (14, 47), "A1": (4, 8)}
 RATE_SEEDS = tuple(range(12))
 RATE_ALPHA = 0.05
@@ -171,6 +215,10 @@ FP32_INSTR_PER_S = 67e12 / 2
 # them (7), the polarity max (1), 8 NMS compares. (The twin's form, 16
 # arcs from three-long extrema, takes 183.)
 FAST_OPS_PER_PX = 16 + 2 * (24 + 16 + 7) + 1 + 8
+
+
+# kernels whose first profiler session in `device_ms` recorded no launch
+PROFILE_MISSES = []
 
 
 def fail(msg: str) -> None:
@@ -236,25 +284,30 @@ def count_prior_clip():
     """Count, over the block, how often `ba.marginalize_prior` clips its
     Schur complement: torch.linalg.eigh is wrapped while marginalize_prior
     runs, and the ratio of the smallest to the largest eigenvalue of each
-    call stays on the device until the block ends. Yields a dict that is
-    then filled with the calls, those with a negative eigenvalue (where the
-    clip fires) and the most negative ratio."""
+    call stays on the device until the block ends. The frame step computes
+    the marginalization on every frame and keeps it on a keyframe of a full
+    window only; on the other frames it passes the identity, and those
+    calls are not counted. Yields a dict that is then filled with the
+    marginalizations, those with a negative eigenvalue (where the clip
+    fires) and the most negative ratio."""
     import torch
 
     from pose_estimation_tpu_torch.backend import ba as ba_mod
 
     marg, eigh = ba_mod.marginalize_prior, torch.linalg.eigh
-    ratios, stats = [], {}
+    ratios, kept, stats = [], [], {}
 
     def recording_eigh(a, *args, **kwargs):
         evals, evecs = eigh(a, *args, **kwargs)
         ratios.append(evals[0] / torch.clamp(evals[-1].abs(), min=1e-300))
         return evals, evecs
 
-    def counted_marg(*args, **kwargs):
+    def counted_marg(win, h_final, *args, **kwargs):
+        kept.append((h_final != torch.eye(h_final.shape[0], dtype=h_final.dtype,
+                                          device=h_final.device)).any())
         torch.linalg.eigh = recording_eigh
         try:
-            return marg(*args, **kwargs)
+            return marg(win, h_final, *args, **kwargs)
         finally:
             torch.linalg.eigh = eigh
 
@@ -263,7 +316,8 @@ def count_prior_clip():
         yield stats
     finally:
         ba_mod.marginalize_prior = marg
-    r = torch.stack(ratios).tolist() if ratios else []
+    r = ([x for x, k in zip(torch.stack(ratios).tolist(), torch.stack(kept).tolist()) if k]
+         if ratios else [])
     stats.update(calls=len(r), negative=sum(x < 0 for x in r), worst_ratio=min(r, default=0.0))
 
 
@@ -341,9 +395,9 @@ def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=Non
 def protocol_worker(job):
     """One run of the state machine in a worker process: (run, seed of the
     draws, device, front end) -> its record, checked by the caller. `run`
-    names a world of the accuracy protocol, or "KITTI-dense": the
-    KITTI-width rig with the frames remapped before detection. The front
-    end is "kernel" or "map"."""
+    names a world of the accuracy protocol, "A2-p3p": world A2 with the
+    P3P bootstrap, or "KITTI-dense": the KITTI-width rig with the frames
+    remapped before detection. The front end is "kernel" or "map"."""
     import torch
 
     from pose_estimation_tpu_torch.testing import (StereoInertialSim, protocol_world,
@@ -353,6 +407,9 @@ def protocol_worker(job):
     if run == "KITTI-dense":
         cfg = kitti_config(rectify_mode="dense")
         world, duration, imu_seed = StereoInertialSim(cfg, n_landmarks=150, seed=0), 6.0, 10
+    elif run == "A2-p3p":       # world A2 with the P3P bootstrap (solve_pnp=2)
+        cfg, world, duration, imu_seed = protocol_world("A2")
+        cfg = dataclasses.replace(cfg, solve_pnp=2)
     else:
         cfg, world, duration, imu_seed = protocol_world(run)
     t0 = time.perf_counter()
@@ -391,20 +448,27 @@ def min_passes(n: int, passes: int, trials: int, alpha: float) -> int:
 def device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time of the kernels named `kernel` per call of fn(), in
     ms: their summed durations under torch.profiler over `reps` calls, the
-    host gaps between launches left out."""
+    host gaps between launches left out. A session that records no such
+    kernel is profiled once more (and counted in PROFILE_MISSES); a second
+    miss fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.events() if e.device_type.name == "CUDA" and kernel in e.name]
-    if not hits:
-        fail(f"the profiler saw no kernel named {kernel}")
-    return sum(e.device_time for e in hits) / 1e3 / reps
+    for session in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        hits = [e for e in events if kernel in e.name]
+        if hits:
+            return sum(e.device_time for e in hits) / 1e3 / reps
+        PROFILE_MISSES.append(kernel)
+        print(f"note: profiler session {session} recorded no kernel named {kernel} "
+              f"({len(events)} device events)")
+    fail(f"the profiler saw no kernel named {kernel} in two sessions")
 
 
 def check_select(select_args, label):
@@ -439,6 +503,63 @@ def kernel_result(err, ms, dev_ms, plain_ms, bound_ms_by, lib_ms=None, **extra) 
     library call's ms or None, and any further fields."""
     return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound=bound_ms_by[0],
                 by=bound_ms_by[1], lib_ms=lib_ms, **extra)
+
+
+def check_sample(name, st, bnds, kp, bud, pool_xy) -> dict:
+    """K2 against its all-levels twin on the plane stack `st` at the
+    keypoints `kp` of `orb.detect`: moments within K2_TOL_MOM of each
+    level's largest, at least K2_MIN_CLOSE of the samples within
+    K2_TOL_VAL. Returns its kernel_result (timed)."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import sample
+
+    n_pool = pool_xy.shape[0]
+    n_circle = sum(1 for dy in range(-sample.PATCH_R, sample.PATCH_R + 1)
+                   for dx in range(-sample.PATCH_R, sample.PATCH_R + 1)
+                   if dx * dx + dy * dy <= sample.PATCH_R ** 2)
+    b = st.shape[0] // len(bud)
+    xy = torch.cat([kp.xy[lvl * b:(lvl + 1) * b, :kb] for lvl, kb in enumerate(bud)],
+                   dim=1).contiguous()
+    k2args = (st, bnds, xy, bud, pool_xy)
+    got2 = sample.sample_patches(*k2args)
+    ref2 = sample.sample_stack_plain(*k2args)
+    torch.cuda.synchronize()
+    off = sample.level_offsets(bud)
+    close = []
+    for lvl in range(len(bud)):
+        g, rr = got2[:, off[lvl]:off[lvl + 1]], ref2[:, off[lvl]:off[lvl + 1]]
+        scale = float(rr[..., n_pool:].abs().max())
+        mom_err = float((g[..., n_pool:] - rr[..., n_pool:]).abs().max())
+        if mom_err > K2_TOL_MOM * scale:
+            fail(f"sample_patches ({name}, level {lvl}): moment error {mom_err} > "
+                 f"{K2_TOL_MOM} x {scale}")
+        close.append(float(((g[..., :n_pool] - rr[..., :n_pool]).abs()
+                            <= K2_TOL_VAL).float().mean()))
+    if min(close) < K2_MIN_CLOSE:
+        fail(f"sample_patches ({name}): only {min(close):.5f} of samples within {K2_TOL_VAL}")
+    n_kp = xy.shape[0] * xy.shape[1]
+    # bytes: each plane's content read once (not the stack's padding), each
+    # keypoint and pool point read once, the [K, P + 2] outputs written
+    # once; instructions per keypoint: the moments (2 multiply-adds per
+    # pixel of the radius-15 circle) and per pool point the 7 x 7 blur as
+    # 49 + 7 multiply-adds, the rotation (4 multiplies, 2 adds), its
+    # rounding (2) and clamps (4)
+    k2_bytes = (sum(lh * lw for lh, lw in bnds) * 4 + n_kp * (8 + 4 * (n_pool + 2))
+                + n_pool * 8)
+    r = kernel_result(
+        float((got2[..., :n_pool] - ref2[..., :n_pool]).abs().max()),
+        cuda_ms(lambda: sample.sample_patches(*k2args)),
+        device_ms(lambda: sample.sample_patches(*k2args), "sample_patches_kernel"),
+        cuda_ms(lambda: sample.sample_stack_plain(*k2args), reps=5, warm=1),
+        bound(k2_bytes, n_kp * (2 * n_circle + n_pool * (56 + 6 + 2 + 4))),
+        keypoints=n_kp, min_close=min(close))
+    print(f"K2 sample_patches [{tuple(st.shape)}] ({name}), {n_kp} keypoints over {len(bud)} "
+          f"levels, one launch: moments within {K2_TOL_MOM} rel, min share of samples "
+          f"within {K2_TOL_VAL}: {min(close):.5f}, max |dv| {r['err']:.3g}; kernel "
+          f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound']:.4f} ms ({r['by']})")
+    return r
 
 
 def kernel_checks(dev, cfg, frame, kcfg) -> dict:
@@ -546,57 +667,9 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
     # K2: one launch over every level of the pair, against the all-levels
     # twin, at EuRoC width (its path's shape, kept as the kernel's row) and
     # at KITTI width
-    n_pool = oc.pool_xy.shape[0]
-    n_circle = sum(1 for dy in range(-sample.PATCH_R, sample.PATCH_R + 1)
-                   for dx in range(-sample.PATCH_R, sample.PATCH_R + 1)
-                   if dx * dx + dy * dy <= sample.PATCH_R ** 2)
-    k2 = {}
-    for name, st, bnds, kp, bud in (("euroc", stack, bounds, kps, budgets),
-                                    ("kitti", kstack, kbounds, kkps, kbudgets)):
-        b = st.shape[0] // len(bud)
-        xy = torch.cat([kp.xy[lvl * b:(lvl + 1) * b, :kb] for lvl, kb in enumerate(bud)],
-                       dim=1).contiguous()
-        k2args = (st, bnds, xy, bud, oc.pool_xy)
-        got2 = sample.sample_patches(*k2args)
-        ref2 = sample.sample_stack_plain(*k2args)
-        torch.cuda.synchronize()
-        off = sample.level_offsets(bud)
-        close = []
-        for lvl in range(len(bud)):
-            g, rr = got2[:, off[lvl]:off[lvl + 1]], ref2[:, off[lvl]:off[lvl + 1]]
-            scale = float(rr[..., n_pool:].abs().max())
-            mom_err = float((g[..., n_pool:] - rr[..., n_pool:]).abs().max())
-            if mom_err > K2_TOL_MOM * scale:
-                fail(f"sample_patches ({name}, level {lvl}): moment error {mom_err} > "
-                     f"{K2_TOL_MOM} x {scale}")
-            close.append(float(((g[..., :n_pool] - rr[..., :n_pool]).abs()
-                                <= K2_TOL_VAL).float().mean()))
-        if min(close) < K2_MIN_CLOSE:
-            fail(f"sample_patches ({name}): only {min(close):.5f} of samples within "
-                 f"{K2_TOL_VAL}")
-        n_kp = xy.shape[0] * xy.shape[1]
-        # bytes: each plane's content read once (not the stack's padding),
-        # each keypoint and pool point read once, the [K, P + 2] outputs
-        # written once; instructions per keypoint: the moments (2
-        # multiply-adds per pixel of the radius-15 circle) and per pool
-        # point the 7 x 7 blur as 49 + 7 multiply-adds, the rotation (4
-        # multiplies, 2 adds), its rounding (2) and clamps (4)
-        k2_bytes = (sum(lh * lw for lh, lw in bnds) * 4 + n_kp * (8 + 4 * (n_pool + 2))
-                    + n_pool * 8)
-        k2[name] = kernel_result(
-            float((got2[..., :n_pool] - ref2[..., :n_pool]).abs().max()),
-            cuda_ms(lambda: sample.sample_patches(*k2args)),
-            device_ms(lambda: sample.sample_patches(*k2args), "sample_patches_kernel"),
-            cuda_ms(lambda: sample.sample_stack_plain(*k2args), reps=5, warm=1),
-            bound(k2_bytes, n_kp * (2 * n_circle + n_pool * (56 + 6 + 2 + 4))),
-            keypoints=n_kp, min_close=min(close))
-        r = k2[name]
-        print(f"K2 sample_patches [{tuple(st.shape)}], {n_kp} keypoints over {len(bud)} "
-              f"levels, one launch: moments within {K2_TOL_MOM} rel, min share of samples "
-              f"within {K2_TOL_VAL}: {min(close):.5f}, max |dv| {r['err']:.3g}; kernel "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound']:.4f} ms ({r['by']})")
-        del got2, ref2
+    k2 = {name: check_sample(name, st, bnds, kp, bud, oc.pool_xy)
+          for name, st, bnds, kp, bud in (("euroc", stack, bounds, kps, budgets),
+                                          ("kitti", kstack, kbounds, kkps, kbudgets))}
     res["sample_patches"] = dict(k2["euroc"], kitti_width=k2["kitti"])
 
     # K4 on both plane stacks: against its twin in float32 and in float64,
@@ -717,6 +790,232 @@ def kernel_checks(dev, cfg, frame, kcfg) -> dict:
           f"ms, bound {r['bound']:.4f} ms ({r['by']}); {probe_launches} launches in the "
           "sweep")
     return res
+
+
+class ResumeSplit:
+    """Feeds one simulated run to `first`; at the first frame at or after
+    `t_split` s that finds `first` in OK it checkpoints `first` to `path`
+    and loads it into `second`, which from then on gets every call too."""
+
+    def __init__(self, first, second, t_split, path):
+        self.first, self.second, self.t_split, self.path = first, second, t_split, path
+        self.resumed = False
+
+    def collect_imu_data(self, *args):
+        for s in (self.first, self.second) if self.resumed else (self.first,):
+            s.collect_imu_data(*args)
+
+    def process(self, img_l, img_r, ts):
+        if not self.resumed and ts >= self.t_split * 1e9 and self.first.state.name == "OK":
+            self.first.save_checkpoint(self.path)
+            self.second.load_checkpoint(self.path)
+            self.resumed = True
+        out = self.first.process(img_l, img_r, ts)
+        if self.resumed:
+            self.second.process(img_l, img_r, ts)
+        return out
+
+
+def batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth) -> dict:
+    """Phase 9: many sequences in one frame step (`parallel.batched`) at
+    EuRoC width. The kernels at the batched plane stack of BATCH stereo
+    pairs (K1 and K2 on their path's shape, K3 and K4 at the same shape)
+    against their twins; BATCH_FRAMES chained batched frames, K1 and K2
+    once per frame, under the divergence guard; the second frame held per
+    lane against the single-sequence `ok_step` from the same state and
+    uniforms; then a checkpoint in the middle of a state-machine run that
+    must continue as the run does. Returns the kernels' batched records
+    and the phase's numbers."""
+    import os
+    import tempfile
+
+    import torch
+
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.ops import fast, moments, orb
+    from pose_estimation_tpu_torch.parallel import batched
+    from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
+    from pose_estimation_tpu_torch.testing import protocol_world, seeded_state
+    from pose_estimation_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    ocfg, oc = static.orb, consts.orb
+    imgs = torch.stack([torch.from_numpy(np.ascontiguousarray(frames[j][c])).to(dev)
+                        for c in (0, 1) for j in range(BATCH)]).to(torch.float32)
+    stack, bounds = orb.plane_stack(imgs, ocfg, oc)
+    args = (stack, bounds, ocfg.th_hi, ocfg.th_lo, orb.EDGE, ocfg.k_per_cell)
+    got, valid, k1_err = check_select(args, "batched stack")
+    content = sum(lh * lw for lh, lw in bounds)
+    out_bytes = sum(a.numel() * 4 for a in got)
+    out["fast_select"] = kernel_result(
+        k1_err, cuda_ms(lambda: fast.fast_select(*args)),
+        device_ms(lambda: fast.fast_select(*args), "fast_select_kernel"),
+        cuda_ms(lambda: fast.select_plain(*args), reps=3, warm=1),
+        bound(content * 4 + out_bytes, content * (FAST_OPS_PER_PX + 8)))
+    cls, per = fast.plane_classes(tuple(bounds))
+    n_work = fast.select_plan(*stack.shape[1:], cls, orb.EDGE).first[-1]
+    r = out["fast_select"]
+    print(f"K1 fast_select [{tuple(stack.shape)}] (batched, {BATCH} pairs): "
+          f"{int(valid.sum())} candidates, scores/codes exact, max |dxy| {k1_err:.3g} px; "
+          f"one launch of ({len(cls)} + {n_work}) x {per} blocks; kernel {r['ms']:.4f} ms "
+          f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound']:.4f} ms ({r['by']})")
+    budgets = orb.level_budgets(ocfg)
+    kps = orb.detect(stack, bounds, ocfg, budgets[0])
+    out["sample_patches"] = check_sample("batched", stack, bounds, kps, budgets, oc.pool_xy)
+
+    # K3 and K4 at the batched stack's shape (off this width's path)
+    raw, masked = fast.fast_score_nms(stack)
+    praw, pmasked = fast.score_nms_plain(stack)
+    torch.cuda.synchronize()
+    if not (torch.equal(raw, praw) and torch.equal(masked, pmasked)):
+        fail("fast_score_nms (batched stack): values differ from the twin")
+    del raw, masked, praw, pmasked
+    out["fast_score_nms"] = kernel_result(
+        0.0, cuda_ms(lambda: fast.fast_score_nms(stack)),
+        device_ms(lambda: fast.fast_score_nms(stack), "fast_score_nms_kernel"),
+        cuda_ms(lambda: fast.score_nms_plain(stack), reps=2, warm=1),
+        bound(stack.numel() * 12, stack.numel() * FAST_OPS_PER_PX))
+    g10, g01 = moments.moment_maps(stack)
+    r10, r01 = moments.moment_maps_plain(stack)
+    k4_err = max(rel_err(g10, r10), rel_err(g01, r01))
+    if k4_err > K4_TOL_MOM:
+        fail(f"moment_maps (batched stack): {k4_err:.3g} of the largest |moment| from the twin")
+    k4_abs = float(torch.maximum((g10 - r10).abs().max(), (g01 - r01).abs().max()))
+    del g10, g01, r10, r01
+    out["moment_maps"] = kernel_result(
+        k4_abs, cuda_ms(lambda: moments.moment_maps(stack)),
+        device_ms(lambda: moments.moment_maps(stack), "moment_maps_kernel"),
+        cuda_ms(lambda: moments.moment_maps_plain(stack), reps=2, warm=1),
+        bound(stack.numel() * 12, stack.numel() * K4_OPS_PER_PX))
+    for name in ("fast_score_nms", "moment_maps"):
+        r = out[name]
+        print(f"{name} [{tuple(stack.shape)}] (batched): {r['err']:.3g} from the twin; kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound']:.4f} ms ({r['by']})")
+    del stack
+
+    # the batched chain: lane j replays frames j, j + 1, ...
+    inputs = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (frames[i][0], frames[i][1], gyrs[i], accs[i], mask))
+              for i in range(BATCH + BATCH_FRAMES)]
+    gens = [torch.Generator(device=dev).manual_seed(100 + j) for j in range(BATCH)]
+    step = batched.make_batched_step(consts, static)
+    state = batched.stack_states([seeded_state(static, truth, dev, j) for j in range(BATCH)])
+    held, metrics = None, []
+    torch.cuda.synchronize()
+    zero_counters()
+    t_start = time.perf_counter()
+    with counted_extractions() as extractions:
+        for i in range(BATCH_FRAMES):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
+            before = state
+            lane_in = [torch.stack(parts) for parts in zip(*(inputs[j + i] for j in range(BATCH)))]
+            state, m = step(state, *lane_in, u)
+            if i == 1:
+                held = (before, lane_in, u)
+            metrics.append(m)
+        torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = counters()
+    ms_step = (t_end - t_warm) * 1e3 / (BATCH_FRAMES - 2)
+    if (launches["fast_select"], launches["sample_patches"]) != (BATCH_FRAMES, BATCH_FRAMES) \
+            or launches["fast_score_nms"] or launches["moment_maps"] \
+            or extractions[0] != BATCH_FRAMES:
+        fail(f"batched step: {extractions[0]} extractions and launches {launches} in "
+             f"{BATCH_FRAMES} batched frames (one extraction, K1 and K2 once each, a frame)")
+    excess = np.full(BATCH, -math.inf)
+    dist = np.zeros(BATCH)
+    for i, m in enumerate(metrics):
+        p = m["rec_p"].cpu().numpy()
+        for j in range(BATCH):
+            dist[j] += float(np.linalg.norm(truth(j + i + 1)[1] - truth(j + i)[1]))
+            err = float(np.linalg.norm(p[j] - truth(j + i + 1)[1]))
+            excess[j] = max(excess[j], err - DIVERGED_PER_M * dist[j])
+        cost = m["ba_cost"].cpu().numpy()
+        if not (cost >= 0.0).all():
+            fail(f"batched frame {i}: BA cost {cost} negative or not finite")
+        if i >= 2 and not (float(m["n_tracked"].float().mean()) > 0
+                           and float(m["ba_iters"].float().mean()) > 0):
+            fail(f"batched frame {i}: tracking or BA dead in every lane")
+        print(f"  batched frame {i}: tracked {m['n_tracked'].tolist()} "
+              f"ba_iters {m['ba_iters'].tolist()} kf {m['is_keyframe'].int().tolist()}")
+    held_lanes = int((excess <= DIVERGED_M).sum())
+    if 2 * held_lanes < BATCH or (excess > RUNAWAY_M).any():
+        fail(f"batched chain: {held_lanes} of {BATCH} lanes within {DIVERGED_PER_M} x distance "
+             f"+ {DIVERGED_M} m, largest excess {excess.max():.3f} m")
+    leaves = [t for t in tree_leaves(state) if t.is_floating_point()]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail("batched chain: non-finite state")
+    print(f"batched step, B = {BATCH} at {imgs.shape[2]}x{imgs.shape[1]}: {BATCH_FRAMES} "
+          f"frames in {t_end - t_start:.2f} s, {ms_step:.2f} ms a batched frame over frames "
+          f"2-{BATCH_FRAMES - 1} ({BATCH / ms_step * 1e3:.2f} frames/s); launches {launches}; "
+          f"{held_lanes} of {BATCH} lanes within the divergence bound (largest excess per "
+          f"lane, m: {[round(float(x), 3) for x in excess]})")
+
+    # the second batched frame again, lane by lane: against the lane in a
+    # batch of copies of itself, then against the single step
+    before, lane_in, u = held
+    held_static = dataclasses.replace(static, max_iterations=HELD_LM_ITERS)
+    held_step = batched.make_batched_step(consts, held_static)
+    b_out, m = held_step(before, *lane_in, u)
+    agree, rows = 0, []
+    for j in range(BATCH):
+        def copies(t):
+            return t[j:j + 1].expand((BATCH,) + t.shape[1:]).contiguous()
+
+        c_out, c_m = held_step(tree_map(copies, before), *map(copies, lane_in), copies(u))
+        pairs = zip(tree_leaves((b_out, tuple(m.values()))),
+                    tree_leaves((c_out, tuple(c_m.values()))))
+        if not all(torch.equal(a[j], c[k]) for a, c in pairs for k in range(BATCH)):
+            fail(f"batched lane {j} differs from the same lane in a batch of {BATCH} copies "
+                 "of itself: a lane's result depends on the other lanes")
+        _, sm = vio.ok_step(batched.lane(before, j), *inputs[j + 1], None, consts, held_static,
+                            ransac_u=tuple(u[j]))
+        dc = max(abs(int(m[k][j]) - int(sm[k])) for k in ("n_stereo", "n_tracked"))
+        di = abs(int(m["ba_iters"][j]) - int(sm["ba_iters"]))
+        dp = float((m["rec_p"][j] - sm["rec_p"]).abs().max())
+        rows.append((int(m["n_tracked"][j]), int(sm["n_tracked"]), dc, di, dp))
+        agree += dc == 0 and di == 0 and dp <= BATCH_TOL_P
+        if dp > BATCH_LOOSE_P:
+            fail(f"batched lane {j}: position {dp:.3g} m from the single step "
+                 f"(bound {BATCH_LOOSE_P} m)")
+    print(f"batched frame 1 (LM capped at {HELD_LM_ITERS}): every lane bit-equal to itself in "
+          f"a batch of {BATCH} copies; against {BATCH} single ok_steps (same states and "
+          f"uniforms), per lane (tracked batched, single, largest count difference, LM "
+          f"iteration difference, position difference m): {rows}; {agree} lanes agree "
+          f"(counts and LM iterations equal, position within {BATCH_TOL_P} m; at least "
+          f"{BATCH_MIN_AGREE} must)")
+    if agree < BATCH_MIN_AGREE:
+        fail(f"batched frame against single steps: {agree} of {BATCH} lanes agree")
+    worst_p = max(r[4] for r in rows)
+    out.update(launches=launches, ms_per_step=ms_step, frames_per_s=BATCH / ms_step * 1e3,
+               lane_p_err=worst_p, lanes_agree=agree)
+
+    # a checkpoint in the middle of a state-machine run on the card
+    cfg, world, _, imu_seed = protocol_world("A2")
+    first = VisualInertialSLAM(cfg, seed=5, device=dev)
+    second = VisualInertialSLAM(cfg, seed=77, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        split = ResumeSplit(first, second, RESUME_AT, os.path.join(tmp, "ck.npz"))
+        world.run(split, duration=RESUME_END, imu_noise=2.4e-3, seed=imu_seed)
+    if not split.resumed or first.state != State.OK or second.state != State.OK:
+        fail(f"checkpoint: the runs ended in {first.state.name} and {second.state.name}")
+    diff = max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(tree_leaves(first.vio), tree_leaves(second.vio)))
+    n_after = len(second._records)
+    traj_diff = float(np.abs(first.trajectory[-n_after:] - second.trajectory).max())
+    if n_after < 5 or diff > RESUME_TOL or traj_diff > RESUME_TOL:
+        fail(f"checkpoint: the resumed run is {diff:.3g} (state) and {traj_diff:.3g} "
+             f"(trajectory) from the uninterrupted one over {n_after} frames")
+    print(f"checkpoint at {RESUME_AT} s of world A2, resumed in a new object: {n_after} frames "
+          f"to {RESUME_END} s, state within {diff:.3g} and trajectory within {traj_diff:.3g} "
+          f"of the uninterrupted run (tolerance {RESUME_TOL})")
+    out["resume_diff"] = max(diff, traj_diff)
+    return out
 
 
 def main() -> None:
@@ -905,6 +1204,10 @@ def main() -> None:
     if mid_median > MID_RATIO * JAX_MID_MEDIAN_M:
         fail(f"full-depth drift: median {mid_median:.4f} m > {MID_RATIO} x {JAX_MID_MEDIAN_M} m")
 
+    # ---- phase 9 (run here, before the state machines): many sequences
+    # in one frame step, and a checkpoint
+    batched_res = batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth)
+
     # ---- phase 7: the host state machine at KITTI width (K3's route)
     kworld = StereoInertialSim(kcfg, n_landmarks=150, seed=0)
     zero_counters()
@@ -947,7 +1250,8 @@ def main() -> None:
     # ---- phase 8: the accuracy protocol (benchmarks/chip_accuracy.py), its
     # runs in worker processes that share the card, the longest first
     jobs = ([(run, 0, "cuda", "kernel") for run in HARD_RUNS]
-            + [("KITTI-dense", 0, "cuda", "kernel"), ("A2", 0, "cuda", "map")]
+            + [("KITTI-dense", 0, "cuda", "kernel"), ("A2", 0, "cuda", "map"),
+               ("A2-p3p", 0, "cuda", "kernel")]
             + [(run, s, "cuda", "kernel") for run in RATE_RUNS for s in RATE_SEEDS])
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
@@ -988,14 +1292,14 @@ def main() -> None:
                 f"{r['ok_frames']} OK frames, {r['ms_per_ok_frame']:.2f} ms each "
                 f"({PROTOCOL_WORKERS} processes share the card); marginalization clip "
                 f"{r['prior_clip']}; {r['seconds']:.1f} s")
-        if r["front"] == "map" or r["run"] == "KITTI-dense":
+        if r["front"] == "map" or r["run"] in EXTRA_RUNS:
             line += f"; {r['extractions']} extractions, launches {n}"
         elif r["seed"] == 0:
             j_ate, j_ba, j_bg = JAX_RECORD[r["run"]]
             line += (f"; the JAX package on a TPU (CHIP_ACCURACY_r05): ATE {j_ate} %, "
                      f"|ba| {j_ba}, |bg| {j_bg}")
         print(line)
-    extra = [r for r in results if r["front"] == "map" or r["run"] == "KITTI-dense"]
+    extra = [r for r in results if r["front"] == "map" or r["run"] in EXTRA_RUNS]
     results = [r for r in results if r not in extra]
     for r in extra:     # held to 3 x the gates; the gate verdict is printed above
         if not (r["ate_pct"] < RUNAWAY * GATE_ATE_PCT and r["ba"] < RUNAWAY * GATE_BA
@@ -1051,10 +1355,19 @@ def main() -> None:
          "max_abs_err": k[name]["err"], "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
          "bound_ms": k[name]["bound"], "bound_by": k[name]["by"],
          "library_ms": k[name]["lib_ms"], "device_ms": k[name]["device_ms"],
-         **{key: k[name][key] for key in ("kitti_width", "protocol") if key in k[name]}}
+         **{key: k[name][key] for key in ("kitti_width", "protocol") if key in k[name]},
+         **({"batched": dict(batched_res[name],
+                             launches=batched_res["launches"][name])}
+            if name in batched_res else {})}
         for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
-        "kitti_ms_per_ok_frame": kitti_ms}
+        "kitti_ms_per_ok_frame": kitti_ms,
+        "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
+                    "frames_per_s": batched_res["frames_per_s"],
+                    "lane_p_err": batched_res["lane_p_err"],
+                    "lanes_agree": batched_res["lanes_agree"],
+                    "resume_diff": batched_res["resume_diff"]},
+        "profiler_sessions_repeated": PROFILE_MISSES}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

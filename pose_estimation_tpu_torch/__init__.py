@@ -1,4 +1,4 @@
-"""pose_estimation_tpu_torch — the steady-state VIO frame step in PyTorch.
+"""pose_estimation_tpu_torch — the stereo VIO system in PyTorch.
 
 A port of `pose_estimation_tpu` (JAX) to PyTorch with hand-written CUDA
 kernels for NVIDIA Hopper (`csrc/`). The layout mirrors the JAX package:
@@ -6,7 +6,10 @@ each module here is the counterpart of the module of the same path there.
 The package imports `torch` and numpy only; the JAX package stays the
 reference the port is tested against (`tests/test_torch_*.py`).
 
-Entry point: `models.vio.build_constants` then `models.vio.ok_step`.
+Entry points: `slam.VisualInertialSLAM` (one sequence through the state
+machine), `parallel.batched_slam.BatchedReplay` (many in lock-step), and
+the frame steps themselves, `models.vio.ok_step` and
+`parallel.batched.make_batched_step`.
 """
 
 __version__ = "0.1.0"

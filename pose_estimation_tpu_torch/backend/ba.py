@@ -86,14 +86,19 @@ def _prep(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
     blk_vi = w_imu * jvi
 
     # pair k's frame-j blocks go to parameter block k, frame-i blocks to k-1
-    jac_pairs = torch.zeros((15 * wsize, 15 * wsize), dtype=dtype, device=dev)
-    for k in range(wsize):
-        rows = slice(15 * k, 15 * k + 15)
-        jac_pairs[rows, 6 * k:6 * k + 6] = blk_pj[k]
-        jac_pairs[rows, 6 * wsize + 9 * k:6 * wsize + 9 * k + 9] = blk_vj[k]
-        if k > 0:
-            jac_pairs[rows, 6 * (k - 1):6 * k] = blk_pi[k]
-            jac_pairs[rows, 6 * wsize + 9 * (k - 1):6 * wsize + 9 * k] = blk_vi[k]
+    # (concatenated block rows, no write into a buffer: `torch.func.vmap`
+    # maps this over a batch of sequences)
+    zp = torch.zeros((15, 6), dtype=dtype, device=dev)
+    zv = torch.zeros((15, 9), dtype=dtype, device=dev)
+
+    def pair_row(k):
+        pose = [blk_pj[k] if c == k else blk_pi[k] if c == k - 1 else zp
+                for c in range(wsize)]
+        vb = [blk_vj[k] if c == k else blk_vi[k] if c == k - 1 else zv
+              for c in range(wsize)]
+        return torch.cat(pose + vb, dim=1)
+
+    jac_pairs = torch.cat([pair_row(k) for k in range(wsize)], dim=0)
 
     lts_imu = res.whitener(win.ics.inv_cov)
     lts_pri = res.whitener(win.ics.inv_cov * prior_factor)
@@ -141,16 +146,10 @@ def prior_delta(win: WindowState) -> torch.Tensor:
 
 
 def _marg_indices(wsize: int):
-    """(dropped dims, kept dims, kept dims' post-roll positions) for
-    marginalizing parameter block 0."""
+    """(dropped dims, kept dims) for marginalizing parameter block 0."""
     n = 15 * wsize
     idx_m = np.concatenate([np.arange(6), 6 * wsize + np.arange(9)])
-    idx_r = np.setdiff1d(np.arange(n), idx_m)
-    new_pos = np.concatenate([
-        np.arange(0, 6 * (wsize - 1)),
-        6 * wsize + np.arange(0, 9 * (wsize - 1)),
-    ])
-    return idx_m, idx_r, new_pos
+    return idx_m, np.setdiff1d(np.arange(n), idx_m)
 
 
 def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowState:
@@ -160,12 +159,12 @@ def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowS
     wsize = win.R.shape[0] - 1
     n = 15 * wsize
     dtype, dev = win.R.dtype, win.R.device
-    idx_m, idx_r, new_pos = (torch.as_tensor(a, device=dev) for a in _marg_indices(wsize))
+    idx_m, idx_r = (torch.as_tensor(a, device=dev) for a in _marg_indices(wsize))
     h = 0.5 * (h_final + h_final.T)
     h_mm = h[idx_m][:, idx_m] + 1e-8 * torch.eye(len(idx_m), dtype=dtype, device=dev)
     h_rm = h[idx_r][:, idx_m]
     h_rr = h[idx_r][:, idx_r]
-    schur = h_rr - h_rm @ torch.linalg.solve(h_mm, h_rm.T)
+    schur = h_rr - h_rm @ torch.linalg.solve_ex(h_mm, h_rm.T)[0]
     schur = 0.5 * (schur + schur.T) * forget
     # A Schur complement of an information matrix is positive semidefinite,
     # but not in float32 when h_mm is near singular (frames the data does
@@ -179,8 +178,17 @@ def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowS
     evals, evecs = torch.linalg.eigh(schur.double())
     schur = ((evecs * torch.clamp(evals, min=0.0)) @ evecs.T).to(dtype)
     schur = 0.5 * (schur + schur.T)
-    prior_h = torch.zeros((n, n), dtype=dtype, device=dev)
-    prior_h[new_pos[:, None], new_pos[None, :]] = schur
+    # the kept blocks at their post-roll places: the pose part at [0, P),
+    # the (v, dbg, dba) part at [6W, 6W + V), zero rows and columns between
+    pd = 6 * (wsize - 1)
+
+    def spread(rows):
+        return torch.cat([rows[:, :pd], torch.zeros((rows.shape[0], 6), dtype=dtype, device=dev),
+                          rows[:, pd:], torch.zeros((rows.shape[0], 9), dtype=dtype, device=dev)],
+                         dim=1)
+
+    prior_h = torch.cat([spread(schur[:pd]), torch.zeros((6, n), dtype=dtype, device=dev),
+                         spread(schur[pd:]), torch.zeros((9, n), dtype=dtype, device=dev)], dim=0)
 
     def roll_slot(a):
         return torch.cat([a[2:], a[-1:]])
@@ -234,10 +242,8 @@ def build_normal_problem(win: WindowState, obs: LandmarkObs, calib: Calib, gravi
 
         def marg_h_fn(x):
             _, w_l = block_costs(x[:6 * wsize].reshape(wsize, 6))
-            h = ph + rows1.T @ rows1
-            h = h.clone()
-            h[0:6, 0:6] += torch.einsum("l,lij->ij", w_l, gram[:, 0])
-            return h
+            top = torch.einsum("l,lij->ij", w_l, gram[:, 0])
+            return ph + rows1.T @ rows1 + torch.nn.functional.pad(top, (0, n - 6, 0, n - 6))
 
         aux["marg_h_fn"] = marg_h_fn
 
@@ -245,10 +251,13 @@ def build_normal_problem(win: WindowState, obs: LandmarkObs, calib: Calib, gravi
         inv_s2 = 1.0 / float(ba_prior_sigma) ** 2
         act_blk = (torch.arange(wsize, device=dev) >= (wsize - win.n_act)).to(dtype)
         ba_tot = win.ics.ba_i + win.dba[1:]
-        ba_dims = (6 * wsize + 9 * torch.arange(wsize, device=dev)[:, None]
-                   + torch.arange(6, 9, device=dev)[None, :]).reshape(-1)
-        h_pairs = h_pairs.clone()
-        h_pairs[ba_dims, ba_dims] += inv_s2 * torch.repeat_interleave(act_blk, 3)
+
+        def on_ba_dims(v):
+            """[W, 3] values of the acc-bias dims -> the [15W] layout."""
+            return torch.cat([torch.zeros(6 * wsize, dtype=dtype, device=dev),
+                              torch.nn.functional.pad(v, (6, 0)).reshape(9 * wsize)])
+
+        h_pairs = h_pairs + torch.diag(on_ba_dims(inv_s2 * act_blk[:, None].expand(wsize, 3)))
 
     def normal_fn(x):
         dpose = x[:6 * wsize].reshape(wsize, 6)
@@ -256,9 +265,9 @@ def build_normal_problem(win: WindowState, obs: LandmarkObs, calib: Calib, gravi
         s_l, w_l = block_costs(dpose)
         hw = torch.einsum("l,lwij->wij", w_l, gram)
         gw = torch.einsum("l,lwi->wi", w_l, bvec) + lie.mv(hw, dpose)
-        h = h_pairs.clone()
-        for k in range(wsize):
-            h[6 * k:6 * k + 6, 6 * k:6 * k + 6] += hw[k]
+        eye_w = torch.eye(wsize, dtype=dtype, device=dev)
+        hw_diag = torch.einsum("kl,kij->kilj", eye_w, hw).reshape(6 * wsize, 6 * wsize)
+        h = h_pairs + torch.nn.functional.pad(hw_diag, (0, 9 * wsize, 0, 9 * wsize))
         g = jac_pairs.T @ pairs.reshape(-1)
         g = torch.cat([g[:6 * wsize] + gw.reshape(-1), g[6 * wsize:]])
         rho_l = torch.where(s_l <= 1.0, s_l,
@@ -271,8 +280,7 @@ def build_normal_problem(win: WindowState, obs: LandmarkObs, calib: Calib, gravi
             cost = cost + 0.5 * rp @ (ph @ rp)
         if ba_prior_sigma > 0:
             r_ba = (ba_tot + x[6 * wsize:].reshape(wsize, 9)[:, 6:9]) * act_blk[:, None]
-            g = g.clone()
-            g[ba_dims] += inv_s2 * r_ba.reshape(-1)
+            g = g + on_ba_dims(inv_s2 * r_ba)
             cost = cost + 0.5 * inv_s2 * torch.sum(r_ba * r_ba)
         return h, g, cost
 

@@ -55,8 +55,13 @@ def imu_residual(dr_i, dp_i, dv_i, ddbg_i, ddba_i,
     return mv(lt, res)
 
 
-def _blocks(shape_lead, rows, cols, dtype, device):
-    return torch.zeros(shape_lead + (rows, cols), dtype=dtype, device=device)
+def _assemble(rows, lead, dtype, device):
+    """A [..., 3R, 3C] matrix from an R x C grid (a list of rows) of
+    [..., 3, 3] blocks, None for a zero block. Built by concatenation, with
+    no write into a buffer, so it maps over a batch with `torch.func.vmap`."""
+    zero = torch.zeros(lead + (3, 3), dtype=dtype, device=device)
+    return torch.cat([torch.cat([zero if b is None else b.expand(lead + (3, 3)) for b in row],
+                                dim=-1) for row in rows], dim=-2)
 
 
 def imu_jacobians(R_i, p_i, v_i, dbg_i, dba_i, R_j, p_j, v_j, ic, gravity):
@@ -73,37 +78,28 @@ def imu_jacobians(R_i, p_i, v_i, dbg_i, dba_i, R_j, p_j, v_j, ic, gravity):
     )
     jr_inv = lie.right_jacobian_inverse(residual_R)
 
-    j_pose_i = _blocks(lead, 15, 6, dtype, dev)
-    j_pose_i[..., 0:3, 0:3] = -jr_inv @ R_j.transpose(-1, -2) @ R_i
-    j_pose_i[..., 3:6, 0:3] = lie.hat(mv(R_iT, v_j - v_i - gravity * dt))
-    j_pose_i[..., 6:9, 0:3] = lie.hat(
-        mv(R_iT, p_j - p_i - v_i * dt - gravity * (dt2 / 2))
-    )
-    j_pose_i[..., 6:9, 3:6] = -eye
+    def blocks(rows):
+        return _assemble(rows, lead, dtype, dev)
 
-    j_vb_i = _blocks(lead, 15, 9, dtype, dev)
-    j_vb_i[..., 0:3, 3:6] = (
-        -jr_inv @ lie.so3_exp(residual_R).transpose(-1, -2)
-        @ lie.right_jacobian(mv(ic.d_R_bg, dbg_i)) @ ic.d_R_bg
-    )
-    j_vb_i[..., 3:6, 0:3] = -R_iT
-    j_vb_i[..., 3:6, 3:6] = -ic.d_v_bg
-    j_vb_i[..., 3:6, 6:9] = -ic.d_v_ba
-    j_vb_i[..., 6:9, 0:3] = -R_iT * ic.dt[..., None, None]
-    j_vb_i[..., 6:9, 3:6] = -ic.d_p_bg
-    j_vb_i[..., 6:9, 6:9] = -ic.d_p_ba
-    j_vb_i[..., 9:12, 3:6] = -eye
-    j_vb_i[..., 12:15, 6:9] = -eye
-
-    j_pose_j = _blocks(lead, 15, 6, dtype, dev)
-    j_pose_j[..., 0:3, 0:3] = jr_inv
-    j_pose_j[..., 6:9, 3:6] = R_iT @ R_j
-
-    j_vb_j = _blocks(lead, 15, 9, dtype, dev)
-    j_vb_j[..., 3:6, 0:3] = R_iT
-    j_vb_j[..., 9:12, 3:6] = eye
-    j_vb_j[..., 12:15, 6:9] = eye
-
+    j_pose_i = blocks([
+        [-jr_inv @ R_j.transpose(-1, -2) @ R_i, None],
+        [lie.hat(mv(R_iT, v_j - v_i - gravity * dt)), None],
+        [lie.hat(mv(R_iT, p_j - p_i - v_i * dt - gravity * (dt2 / 2))), -eye],
+        [None, None],
+        [None, None],
+    ])
+    j_vb_i = blocks([
+        [None, (-jr_inv @ lie.so3_exp(residual_R).transpose(-1, -2)
+                @ lie.right_jacobian(mv(ic.d_R_bg, dbg_i)) @ ic.d_R_bg), None],
+        [-R_iT, -ic.d_v_bg, -ic.d_v_ba],
+        [-R_iT * ic.dt[..., None, None], -ic.d_p_bg, -ic.d_p_ba],
+        [None, -eye, None],
+        [None, None, -eye],
+    ])
+    j_pose_j = blocks([[jr_inv, None], [None, None], [None, R_iT @ R_j],
+                       [None, None], [None, None]])
+    j_vb_j = blocks([[None, None, None], [R_iT, None, None], [None, None, None],
+                     [None, eye, None], [None, None, eye]])
     lt = whitener(ic.inv_cov)
     return lt @ j_pose_i, lt @ j_vb_i, lt @ j_pose_j, lt @ j_vb_j
 
@@ -117,13 +113,10 @@ def prior_jacobians(R_i, dbg_i, R_j, ic, prior_factor: float):
     residual_R = lie.so3_log(
         (ic.dR @ lie.so3_exp(mv(ic.d_R_bg, dbg_i))).transpose(-1, -2) @ (R_iT @ R_j)
     )
-    j_pose_j = _blocks(lead, 15, 6, dtype, dev)
-    j_pose_j[..., 0:3, 0:3] = lie.right_jacobian_inverse(residual_R)
-    j_pose_j[..., 6:9, 3:6] = R_iT @ R_j
-    j_vb_j = _blocks(lead, 15, 9, dtype, dev)
-    j_vb_j[..., 3:6, 0:3] = R_iT
-    j_vb_j[..., 9:12, 3:6] = eye
-    j_vb_j[..., 12:15, 6:9] = eye
+    j_pose_j = _assemble([[lie.right_jacobian_inverse(residual_R), None], [None, None],
+                          [None, R_iT @ R_j], [None, None], [None, None]], lead, dtype, dev)
+    j_vb_j = _assemble([[None, None, None], [R_iT, None, None], [None, None, None],
+                        [None, eye, None], [None, None, eye]], lead, dtype, dev)
     lt = whitener(ic.inv_cov * prior_factor)
     return lt @ j_pose_j, lt @ j_vb_j
 

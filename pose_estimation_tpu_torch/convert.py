@@ -19,6 +19,7 @@ from pose_estimation_tpu_torch.imu.preintegration import ImuConstraint, PreintSt
 from pose_estimation_tpu_torch.models.pool import FeaturePool
 from pose_estimation_tpu_torch.models.vio import VIOState
 from pose_estimation_tpu_torch.models.window import WindowState
+from pose_estimation_tpu_torch.utils.tree import tree_map
 
 _NESTED = {"win": WindowState, "pool": FeaturePool, "preint": PreintState,
            "ics": ImuConstraint}
@@ -77,6 +78,4 @@ def state_from_numpy(tree, device) -> VIOState:
 
 def state_to_numpy(state):
     """The same nested NamedTuples with numpy arrays as leaves."""
-    if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy()
-    return type(state)(*(state_to_numpy(s) for s in state))
+    return tree_map(lambda t: t.detach().cpu().numpy(), state)

@@ -20,11 +20,17 @@
 // padding. The wrapper hands the kernel a plan (ops/fast.py:select_plan):
 // for each plane the rectangle of 32-row x 128-column blocks that hold a
 // pixel with border <= y < lh - border and border <= x < lw - border. The
-// grid is one fill block per plane, which writes the invalid slots of the
-// plane's cells outside that rectangle, then one work block per block of
-// the rectangles: 16 + 566 blocks at EuRoC width ([16, 480, 752], 8 levels
-// of a stereo pair) where a uniform grid of 32-row blocks has 1,440, and 8
-// + 102 where it has 192 in the 320x240, 4-level protocol stack. A work
+// planes come in classes of equal content size, `per` consecutive planes
+// each (a level of a stack of `per` images: one plan row per level,
+// ops/fast.py:plane_classes), so the plan is one row per class and the
+// grid's y index is the plane within its class: a stack of any number of
+// images is one launch. Along x the grid is one fill block per class,
+// which writes the invalid slots of the plane's cells outside its
+// rectangle, then one work block per block of the classes' rectangles:
+// (8 + 283) x 2 blocks at EuRoC width ([16, 480, 752], 8 levels of a
+// stereo pair) where a uniform grid of 32-row blocks has 1,440, (8 + 283)
+// x 16 for a batch of 8 pairs, and (4 + 51) x 2 where the uniform grid has
+// 192 in the 320x240, 4-level protocol stack. A work
 // block stages its 32-row x 128-column tile (two cell rows, the TPU
 // kernel's band) plus a 4-px halo in shared memory, scores the tile plus a
 // 1-px ring with one thread per column walking down half the rows (no
@@ -58,23 +64,24 @@ constexpr int LR = TH + 2 * HALO;         // 40 staged rows
 constexpr int LC = TW + 2 * HALO;         // 136 staged columns
 constexpr int SR = TH + 2;                // 34 score rows (tile + 1-px ring)
 constexpr int SC = TW + 2;                // 130 score columns
-constexpr int MAX_PLANES = 64;
+constexpr int MAX_CLASSES = 64;
+constexpr int MAX_PER = 65535;            // the grid's y limit
 constexpr int MAX_KPC = 8;
 constexpr float NEG = -1e9f;
 static_assert(SR % GROUPS == 0 && TH % GROUPS == 0, "row groups split the tile evenly");
 static_assert(TH * TW <= LR * LC, "the gated tile fits in the staged tile's space");
 
-// The launch plan, passed by value: each plane's content size and the
-// rectangle of work blocks [band0, band0 + bands) x [tile0, tile0 + tiles),
-// and the first work block of each plane (then the total).
+// The launch plan, passed by value: each plane class's content size and
+// the rectangle of work blocks [band0, band0 + bands) x [tile0, tile0 +
+// tiles), and the first work block of each class (then the total).
 struct Plan {
-  int lh[MAX_PLANES];
-  int lw[MAX_PLANES];
-  int band0[MAX_PLANES];
-  int bands[MAX_PLANES];
-  int tile0[MAX_PLANES];
-  int tiles[MAX_PLANES];
-  int first[MAX_PLANES + 1];
+  int lh[MAX_CLASSES];
+  int lw[MAX_CLASSES];
+  int band0[MAX_CLASSES];
+  int bands[MAX_CLASSES];
+  int tile0[MAX_CLASSES];
+  int tiles[MAX_CLASSES];
+  int first[MAX_CLASSES + 1];
 };
 
 __device__ __forceinline__ float para(float sm, float s0, float sp) {
@@ -84,13 +91,14 @@ __device__ __forceinline__ float para(float sm, float s0, float sp) {
   return fminf(fmaxf(off, -0.5f), 0.5f);
 }
 
-// A fill block: the invalid slots of plane `plane`'s cells outside its work
-// rectangle, one cell row at a time, the row's slots contiguous in memory.
-__device__ void fill_invalid(const Plan& plan, int plane, float* vals, int* codes, float* xs,
-                             float* ys, int n_cr, int ncx, int kpc) {
-  const int cr0 = 2 * plan.band0[plane], cr1 = cr0 + 2 * plan.bands[plane];
-  const int s0 = CPB * plan.tile0[plane] * kpc;
-  const int s1 = min(CPB * (plan.tile0[plane] + plan.tiles[plane]), ncx) * kpc;
+// A fill block: the invalid slots of plane `plane` (of class `cls`) in the
+// cells outside its work rectangle, one cell row at a time, the row's
+// slots contiguous in memory.
+__device__ void fill_invalid(const Plan& plan, int cls, int plane, float* vals, int* codes,
+                             float* xs, float* ys, int n_cr, int ncx, int kpc) {
+  const int cr0 = 2 * plan.band0[cls], cr1 = cr0 + 2 * plan.bands[cls];
+  const int s0 = CPB * plan.tile0[cls] * kpc;
+  const int s1 = min(CPB * (plan.tile0[cls] + plan.tiles[cls]), ncx) * kpc;
   const int row_slots = ncx * kpc;
   size_t base = (size_t)plane * n_cr * row_slots;
   for (int cr = 0; cr < n_cr; ++cr, base += row_slots) {
@@ -110,28 +118,32 @@ __global__ void __launch_bounds__(THREADS)
 fast_select_kernel(const float* __restrict__ stack, const __grid_constant__ Plan plan,
                    float* __restrict__ vals, int* __restrict__ codes,
                    float* __restrict__ xs, float* __restrict__ ys,
-                   int n, int h, int w, int n_cr, int ncx,
+                   int n_cls, int h, int w, int n_cr, int ncx,
                    float th_hi, float th_lo, int border, int kpc) {
   __shared__ float tile[LR][LC];          // the staged tile, then the gated scores
   __shared__ float score[SR][SC];
 
-  if ((int)blockIdx.x < n) {
-    fill_invalid(plan, blockIdx.x, vals, codes, xs, ys, n_cr, ncx, kpc);
+  const int per = gridDim.y;
+  if ((int)blockIdx.x < n_cls) {
+    fill_invalid(plan, blockIdx.x, blockIdx.x * per + blockIdx.y, vals, codes, xs, ys,
+                 n_cr, ncx, kpc);
     return;
   }
-  // ---- which work block: the plane by the plan's prefix, then its place
-  // in the plane's rectangle (one division a block)
-  const int g = blockIdx.x - n;
-  int plane = 0;
-  while (g >= plan.first[plane + 1]) ++plane;
-  const int j = g - plan.first[plane];
-  const int bi = j / plan.tiles[plane];
-  const int band = plan.band0[plane] + bi;
-  const int tcol = plan.tile0[plane] + (j - bi * plan.tiles[plane]);
+  // ---- which work block: the class by the plan's prefix, then its place
+  // in the class's rectangle (one division a block); the plane is the
+  // grid's y index within the class
+  const int g = blockIdx.x - n_cls;
+  int cls = 0;
+  while (g >= plan.first[cls + 1]) ++cls;
+  const int plane = cls * per + blockIdx.y;
+  const int j = g - plan.first[cls];
+  const int bi = j / plan.tiles[cls];
+  const int band = plan.band0[cls] + bi;
+  const int tcol = plan.tile0[cls] + (j - bi * plan.tiles[cls]);
   const int y0 = band * TH;
   const int x0 = tcol * TW;
-  const int lh = plan.lh[plane];
-  const int lw = plan.lw[plane];
+  const int lh = plan.lh[cls];
+  const int lw = plan.lw[cls];
   const float* img = stack + (size_t)plane * h * w;
 
   const int tx = threadIdx.x % TW;        // column within the tile
@@ -259,31 +271,34 @@ fast_select_kernel(const float* __restrict__ stack, const __grid_constant__ Plan
 
 }  // namespace
 
-// table: int32 [7 * n + 1], the plan's rows lh, lw, band0, bands, tile0,
-// tiles (n each), then first (n + 1), as ops/fast.py:select_plan lays them.
-// band_rows and tile_cols are the block size the plan was made for
-// (ops/fast.py: BAND, TILE_W), held to the kernel's.
+// table: int32 [7 * n_cls + 1], the plan's rows lh, lw, band0, bands,
+// tile0, tiles (n_cls each), then first (n_cls + 1), as
+// ops/fast.py:select_plan lays them for the classes' content sizes. The
+// stack holds n_cls * per planes, class c being planes c * per .. c * per
+// + per - 1. band_rows and tile_cols are the block size the plan was made
+// for (ops/fast.py: BAND, TILE_W), held to the kernel's.
 extern "C" int fast_select_launch(const float* stack, const int* table,
                                   float* vals, int* codes, float* xs, float* ys,
-                                  int n, int h, int w, int n_cr, int ncx,
+                                  int n_cls, int per, int h, int w, int n_cr, int ncx,
                                   float th_hi, float th_lo, int border, int kpc,
                                   int band_rows, int tile_cols, void* stream) {
-  if (n <= 0 || n > MAX_PLANES || kpc <= 0 || kpc > MAX_KPC || w % CELL != 0 ||
-      band_rows != TH || tile_cols != TW ||
+  if (n_cls <= 0 || n_cls > MAX_CLASSES || per <= 0 || per > MAX_PER || kpc <= 0 ||
+      kpc > MAX_KPC || w % CELL != 0 || band_rows != TH || tile_cols != TW ||
       n_cr != 2 * ((h + TH - 1) / TH) || ncx != w / CELL)
     return (int)cudaErrorInvalidValue;
   Plan plan;
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < n_cls; ++i) {
     plan.lh[i] = table[i];
-    plan.lw[i] = table[n + i];
-    plan.band0[i] = table[2 * n + i];
-    plan.bands[i] = table[3 * n + i];
-    plan.tile0[i] = table[4 * n + i];
-    plan.tiles[i] = table[5 * n + i];
+    plan.lw[i] = table[n_cls + i];
+    plan.band0[i] = table[2 * n_cls + i];
+    plan.bands[i] = table[3 * n_cls + i];
+    plan.tile0[i] = table[4 * n_cls + i];
+    plan.tiles[i] = table[5 * n_cls + i];
   }
-  for (int i = 0; i <= n; ++i) plan.first[i] = table[6 * n + i];
-  const int n_work = plan.first[n];
-  fast_select_kernel<<<n + n_work, THREADS, 0, (cudaStream_t)stream>>>(
-      stack, plan, vals, codes, xs, ys, n, h, w, n_cr, ncx, th_hi, th_lo, border, kpc);
+  for (int i = 0; i <= n_cls; ++i) plan.first[i] = table[6 * n_cls + i];
+  const int n_work = plan.first[n_cls];
+  const dim3 grid(n_cls + n_work, per);
+  fast_select_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      stack, plan, vals, codes, xs, ys, n_cls, h, w, n_cr, ncx, th_hi, th_lo, border, kpc);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@
 //     within an image (level l owns slots off[l] .. off[l+1] - 1); slot t =
 //     image * K_tot + k lies on plane level * B + image of the zero-padded,
 //     level-major plane stack [n_levels * B, H, W], whose content is
-//     lh[plane] x lw[plane];
+//     lh[level] x lw[level] (every image of a level has one size, so the
+//     table passed by value has a row per level and B is not bounded by
+//     it: a batch of 64 stereo pairs, 1,024 planes, is one launch);
 //   * the 43x43 patch of that content padded by 2 px (reflect-101 at the
 //     content edge, zero past that), origin clamped so the patch stays
 //     inside the padded content;
@@ -49,7 +51,6 @@ constexpr int PAD = 2;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LEVELS = 16;
-constexpr int MAX_PLANES = 64;
 
 struct Taps {
   float k[7];
@@ -57,8 +58,8 @@ struct Taps {
 
 struct Tables {
   int off[MAX_LEVELS + 1];   // first slot of each level within an image
-  int lh[MAX_PLANES];        // content size of each plane
-  int lw[MAX_PLANES];
+  int lh[MAX_LEVELS];        // content size of each level's planes
+  int lw[MAX_LEVELS];
 };
 
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -81,7 +82,7 @@ sample_patches_kernel(const float* __restrict__ stack, const float* __restrict__
   int level = 0;
   while (level + 1 < n_levels && k >= tab.off[level + 1]) ++level;
   const int plane = level * b + image;
-  const int lh = tab.lh[plane], lw = tab.lw[plane];
+  const int lh = tab.lh[level], lw = tab.lw[level];
   const float* img = stack + (size_t)plane * h * w;
 
   const int cx = (int)rintf(xy[2 * t]);
@@ -171,14 +172,15 @@ sample_patches_kernel(const float* __restrict__ stack, const float* __restrict__
 // stack [n_levels * b, h, w]; xy [b * k_tot, 2]; pool_xy [n_pool, 2];
 // out [b * k_tot, n_pool + 2]. Host arrays: taps [7], and the table of
 // level offsets off [n_levels + 1] (off[n_levels] == k_tot) followed by the
-// planes' content heights lh and widths lw [n_levels * b each].
+// planes' content heights lh and widths lw [n_levels * b each], which must
+// agree within each level (the kernel keeps one row per level).
 extern "C" int sample_patches_launch(const float* stack, const float* xy,
                                      const float* pool_xy, const float* taps_host,
                                      const int* table, float* out, int b, int k_tot,
                                      int n_levels, int h, int w, int n_pool, void* stream) {
   const int n_planes = n_levels * b;
   if (b <= 0 || k_tot <= 0 || n_pool <= 0 || n_levels <= 0 || n_levels > MAX_LEVELS ||
-      n_planes > MAX_PLANES)
+      (long long)b * k_tot > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int* off = table;
   const int* lh = table + n_levels + 1;
@@ -188,10 +190,14 @@ extern "C" int sample_patches_launch(const float* stack, const float* xy,
   for (int i = 0; i < 7; ++i) taps.k[i] = taps_host[i];
   Tables tab;
   for (int i = 0; i <= n_levels; ++i) tab.off[i] = off[i];
-  for (int i = 0; i < n_planes; ++i) {
-    if (lh[i] < 3 || lw[i] < 3 || lh[i] > h || lw[i] > w) return (int)cudaErrorInvalidValue;
-    tab.lh[i] = lh[i];
-    tab.lw[i] = lw[i];
+  for (int l = 0; l < n_levels; ++l) {
+    tab.lh[l] = lh[l * b];
+    tab.lw[l] = lw[l * b];
+    if (tab.lh[l] < 3 || tab.lw[l] < 3 || tab.lh[l] > h || tab.lw[l] > w)
+      return (int)cudaErrorInvalidValue;
+    for (int i = 1; i < b; ++i)
+      if (lh[l * b + i] != tab.lh[l] || lw[l * b + i] != tab.lw[l])
+        return (int)cudaErrorInvalidValue;
   }
   sample_patches_kernel<<<b * k_tot, THREADS, 0, (cudaStream_t)stream>>>(
       stack, xy, pool_xy, taps, tab, out, b, k_tot, n_levels, h, w, n_pool);

@@ -38,13 +38,10 @@ def compact(mask: torch.Tensor, capacity: int, *payloads):
     ok = mask & (rank < capacity)
     target = torch.where(ok, rank, capacity)
     outs = []
-    for p in payloads:
+    for p in (torch.ones_like(mask), *payloads):
         out = torch.zeros((capacity + 1,) + p.shape[1:], dtype=p.dtype, device=p.device)
-        out[target] = p
-        outs.append(out[:capacity])
-    out_mask = torch.zeros(capacity + 1, dtype=torch.bool, device=mask.device)
-    out_mask[target] = True
-    return (out_mask[:capacity], *outs)
+        outs.append(out.index_put((target,), p)[:capacity])
+    return tuple(outs)
 
 
 def internal_match(feats_l: orb.OrbFeatures, feats_r: orb.OrbFeatures, u,

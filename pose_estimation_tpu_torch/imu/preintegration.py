@@ -152,9 +152,9 @@ def _spd_inverse(m: torch.Tensor) -> torch.Tensor:
 def finalize(state: PreintState, bg, ba, params: ImuParams) -> ImuConstraint:
     """The 15x15 constraint of the accumulated interval."""
     dtype, device = state.dR.dtype, state.dR.device
-    cov15 = torch.zeros((15, 15), dtype=dtype, device=device)
-    cov15[:9, :9] = state.cov9
-    cov15[9:, 9:] = torch.diag(params.cov_bias) * state.dt
+    z = torch.zeros((9, 6), dtype=dtype, device=device)
+    cov15 = torch.cat([torch.cat([state.cov9, z], 1),
+                       torch.cat([z.T, torch.diag(params.cov_bias) * state.dt], 1)], 0)
     return ImuConstraint(
         inv_cov=_spd_inverse(cov15),
         bg_i=bg, ba_i=ba,

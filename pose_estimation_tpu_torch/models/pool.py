@@ -2,9 +2,10 @@
 
 Counterpart of `pose_estimation_tpu/models/pool.py`. The JAX package writes
 descriptor rows with one-hot matmuls, a TPU workaround for slow scatters;
-here plain indexed writes do it. Rejected requests are routed to a dummy
-row past the end (dropped afterwards), so duplicate indices never reach a
-real slot.
+here out-of-place indexed writes (`index_put`) do it, so the updates map
+over a batch of sequences with `torch.func.vmap`. Rejected requests are
+routed to a dummy row past the end (dropped afterwards), so duplicate
+indices never reach a real slot.
 
 obs column W-1 is the current frame, columns 0..W-2 the previous keyframes.
 """
@@ -62,8 +63,7 @@ def _scatter_rows(arr: torch.Tensor, target: torch.Tensor,
     """arr with rows `target` set to `vals`; targets == len(arr) drop."""
     p = arr.shape[0]
     out = torch.cat([arr, torch.zeros_like(arr[:1])], 0)
-    out[target] = vals.to(arr.dtype)
-    return out[:p]
+    return out.index_put((target,), vals.to(arr.dtype))[:p]
 
 
 def record_observations(pool: FeaturePool, slot, matched, px) -> FeaturePool:
@@ -77,24 +77,18 @@ def record_observations(pool: FeaturePool, slot, matched, px) -> FeaturePool:
     last = torch.full((p + 1,), -1, dtype=rows.dtype, device=slot.device).scatter_reduce(
         0, safe_slot, rows, reduce="amax")
     safe_slot = torch.where(last[safe_slot] == rows, safe_slot, p)
-    obs_px = pool.obs_px.clone()
-    obs_px[:, -1] = 0.0
-    obs_mask = pool.obs_mask.clone()
-    obs_mask[:, -1] = False
-    last_px = _scatter_rows(obs_px[:, -1], safe_slot, px)
-    last_mk = _scatter_rows(
-        obs_mask[:, -1], safe_slot, torch.ones_like(matched)
-    )
-    obs_px[:, -1] = last_px
-    obs_mask[:, -1] = last_mk
-    return pool._replace(obs_px=obs_px, obs_mask=obs_mask)
+    last_px = _scatter_rows(torch.zeros_like(pool.obs_px[:, -1]), safe_slot, px)
+    last_mk = _scatter_rows(torch.zeros_like(pool.obs_mask[:, -1]), safe_slot,
+                            torch.ones_like(matched))
+    return pool._replace(obs_px=torch.cat([pool.obs_px[:, :-1], last_px[:, None]], 1),
+                         obs_mask=torch.cat([pool.obs_mask[:, :-1], last_mk[:, None]], 1))
 
 
 def age_and_evict(pool: FeaturePool, slot, matched, max_age: int) -> FeaturePool:
     """Keyframe aging: matched features -1, every feature +2, evict age >
     maxFeatureAge."""
     safe_slot = torch.where(matched, slot, 0)
-    dec = torch.zeros_like(pool.age).index_add_(
+    dec = torch.zeros_like(pool.age).index_add(
         0, safe_slot, torch.where(matched, -1, 0).to(pool.age.dtype)
     )
     age = pool.age + dec + torch.where(pool.valid, 2, 0).to(pool.age.dtype)
@@ -116,12 +110,10 @@ def insert_features(pool: FeaturePool, new_px_l, new_desc_l, new_desc_r,
 
     m = want.shape[0]
     fids = pool.next_fid + want_rank.to(torch.int32)
-    new_obs_px = torch.zeros((m,) + pool.obs_px.shape[1:],
-                             dtype=pool.obs_px.dtype, device=want.device)
-    new_obs_px[:, -1] = new_px_l
-    new_obs_mask = torch.zeros((m,) + pool.obs_mask.shape[1:],
-                               dtype=torch.bool, device=want.device)
-    new_obs_mask[:, -1] = True
+    w = pool.obs_px.shape[1]
+    new_obs_px = torch.cat([torch.zeros((m, w - 1, 2), dtype=pool.obs_px.dtype,
+                                        device=want.device), new_px_l[:, None]], 1)
+    new_obs_mask = torch.arange(w, device=want.device).expand(m, w) == w - 1
     return pool._replace(
         valid=_scatter_rows(pool.valid, safe_t, torch.ones_like(want)),
         age=_scatter_rows(pool.age, safe_t, torch.zeros_like(fids)),

@@ -5,13 +5,17 @@ and the bootstrap steps before it (SfM frame, first OK frame).
 Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
 `init_vio_state`, `extract_rectified`, `front_end`, `_run_backend`,
 `pool_update`, `ok_step`, `sfm_step`, `bootstrap_frame`). The JAX
-`lax.cond` branches that are cheap run both sides and select on the
-device; the three heavy ones (BA, the marginalization, the pool update)
-are Python branches, each costing one host sync per frame. The front end
-follows the JAX package's kernel path unless the configuration asks for the
-map path (`sample_backend="xla"`) or the plain detection
-(`fast_backend="xla"`); on a CUDA device it launches the CUDA kernels, on a
-CPU device their torch twins.
+`lax.cond` branches run both sides and select per sequence with
+`torch.where`, as `lax.cond` does under `vmap`: BA is skipped without
+circular matches, the marginalization and the pool update run on
+keyframes only, with no host read inside the step. So the step after ORB
+extraction (`track_step`) maps over a batch of sequences with
+`torch.func.vmap` (`parallel/batched.py`), while ORB runs once for the
+whole batch (`extract_rectified_batch`). The front end follows the JAX
+package's kernel path unless the configuration asks for the map path
+(`sample_backend="xla"`) or the plain detection (`fast_backend="xla"`); on
+a CUDA device it launches the CUDA kernels, on a CPU device their torch
+twins.
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ class VIOStatic:
     pool_capacity: int
     window: int
     # SfM bootstrap's PnP solver, from the reference's `solvePnP` switch:
-    # 0 -> "dlt", 1/3/4 -> "epnp", 2/5 -> "p3p" (not ported; ops.pnp raises)
+    # 0 -> "dlt", 1/3/4 -> "epnp", 2/5 -> "p3p"
     pnp_solver: str = "dlt"
     # "sparse": ORB on the raw frames, then analytic rectification of the
     # keypoints; "dense": the frames are remapped first
@@ -193,17 +197,23 @@ def init_vio_state(static: VIOStatic, device) -> VIOState:
     )
 
 
-def extract_rectified(img_l, img_r, consts: VIOConstants, static: VIOStatic):
-    """ORB features of a stereo pair with rectified keypoint coordinates.
-    Sparse mode: ORB on the raw pair, then analytic rectification of the
-    keypoints. Dense mode: the pair is remapped through the rectification
-    maps first. Images of any dtype are cast to float32."""
-    img_l, img_r = img_l.to(torch.float32), img_r.to(torch.float32)
+def extract_rectified_batch(imgs_l, imgs_r, consts: VIOConstants, static: VIOStatic):
+    """ORB features of B stereo pairs [B, H, W] with rectified keypoint
+    coordinates, all 2B images in one extraction (one plane stack, so one
+    launch of each kernel): (left, right) features, fields [B, K, ...].
+    Sparse mode: ORB on the raw pairs, then analytic rectification of the
+    keypoints. Dense mode: the pairs are remapped through the
+    rectification maps first. Images of any dtype are cast to float32."""
+    b = imgs_l.shape[0]
+    imgs = torch.cat([imgs_l, imgs_r]).to(torch.float32)
     if static.rectify_mode == "dense":
-        rect = remap.remap_bilinear(torch.stack([img_l, img_r]),
-                                    torch.stack([consts.map_l, consts.map_r]))
-        return orb.extract_pair(rect[0], rect[1], static.orb, consts.orb)
-    feats_l, feats_r = orb.extract_pair(img_l, img_r, static.orb, consts.orb)
+        maps = torch.stack([consts.map_l, consts.map_r]).repeat_interleave(b, dim=0)
+        feats = orb.extract_batch(remap.remap_bilinear(imgs, maps), static.orb, consts.orb)
+        return (orb.OrbFeatures(*(f[:b] for f in feats)),
+                orb.OrbFeatures(*(f[b:] for f in feats)))
+    feats = orb.extract_batch(imgs, static.orb, consts.orb)
+    feats_l = orb.OrbFeatures(*(f[:b] for f in feats))
+    feats_r = orb.OrbFeatures(*(f[b:] for f in feats))
     feats_l = feats_l._replace(xy=remap.rectify_points(
         feats_l.xy, consts.k_raw_l, consts.dist_l, consts.r1, consts.p1))
     feats_r = feats_r._replace(xy=remap.rectify_points(
@@ -211,11 +221,17 @@ def extract_rectified(img_l, img_r, consts: VIOConstants, static: VIOStatic):
     return feats_l, feats_r
 
 
-def front_end(img_l, img_r, pool, ransac_u, consts: VIOConstants, static: VIOStatic):
-    """rectify -> ORB -> stereo match -> temporal track. `ransac_u` is the
-    pair of [64, 8] RANSAC uniforms (stereo, temporal)."""
-    with _span("ok_step.extract"):
-        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+def extract_rectified(img_l, img_r, consts: VIOConstants, static: VIOStatic):
+    """ORB features of one stereo pair with rectified keypoint coordinates
+    (`extract_rectified_batch` at B = 1)."""
+    feats_l, feats_r = extract_rectified_batch(img_l[None], img_r[None], consts, static)
+    return (orb.OrbFeatures(*(f[0] for f in feats_l)),
+            orb.OrbFeatures(*(f[0] for f in feats_r)))
+
+
+def match_features(feats_l, feats_r, pool, ransac_u, static: VIOStatic):
+    """Stereo match -> temporal track of one sequence's extracted features.
+    `ransac_u` is the pair of [64, 8] RANSAC uniforms (stereo, temporal)."""
     with _span("ok_step.match"):
         cur = tracker.internal_match(
             feats_l, feats_r, ransac_u[0], static.cur_capacity,
@@ -227,42 +243,60 @@ def front_end(img_l, img_r, pool, ransac_u, consts: VIOConstants, static: VIOSta
     return cur, tr
 
 
+def front_end(img_l, img_r, pool, ransac_u, consts: VIOConstants, static: VIOStatic):
+    """rectify -> ORB -> stereo match -> temporal track."""
+    with _span("ok_step.extract"):
+        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+    return match_features(feats_l, feats_r, pool, ransac_u, static)
+
+
+def select(cond, a, b):
+    """`a` where the bool scalar tensor `cond` holds, else `b`, leaf by leaf
+    over equal (nested) NamedTuples of tensors: `lax.cond` with both sides
+    computed, per sequence under `vmap`. A leaf that both sides share (the
+    same tensor object: a field the branch left alone) is kept as it is,
+    with no launch."""
+    if a is b:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    return type(a)(*(select(cond, x, y) for x, y in zip(a, b)))
+
+
 def _run_backend(state: VIOState, tr_n_matches, consts: VIOConstants,
                  static: VIOStatic):
-    """Motion-only BA (skipped without circular matches), keyframe
-    decision, marginalization and bias bookkeeping. Returns (state,
-    ba_cost, ba_iters)."""
+    """Motion-only BA (its result kept only with circular matches), keyframe
+    decision, marginalization (on a keyframe of a full window) and bias
+    bookkeeping, each computed and then selected. Returns (state, ba_cost,
+    ba_iters)."""
     win = state.win
-    dev = win.R.device
     wsize = win.R.shape[0] - 1
     has_matches = tr_n_matches > 0
-    if bool(has_matches):
-        obs = LandmarkObs(state.pool.pos, state.pool.obs_px, state.pool.obs_mask)
-        dpose, dvdbga, info = ba_mod.motion_only_ba(
-            win, obs, consts.calib, consts.gravity, static.prior_factor,
-            static.max_iterations, use_marg_prior=static.marg_prior,
-            ba_prior_sigma=static.ba_prior_sigma,
-        )
-        win = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
-                                   static.max_acc_bias)
-        win = win_mod.check_keyframe(win, static.keyframe_rotation,
-                                     static.keyframe_translation, static.max_imu_time)
-        ba_cost, ba_iters = info["final_cost"], info["iterations"]
-        ba_h = info["marg_h"] if static.marg_prior else info["h_final"]
-    else:
-        ba_cost = torch.zeros((), device=dev)
-        ba_iters = torch.zeros((), dtype=torch.int32, device=dev)
-        ba_h = None
+    obs = LandmarkObs(state.pool.pos, state.pool.obs_px, state.pool.obs_mask)
+    dpose, dvdbga, info = ba_mod.motion_only_ba(
+        win, obs, consts.calib, consts.gravity, static.prior_factor,
+        static.max_iterations, use_marg_prior=static.marg_prior,
+        ba_prior_sigma=static.ba_prior_sigma,
+    )
+    solved = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
+                                  static.max_acc_bias)
+    solved = win_mod.check_keyframe(solved, static.keyframe_rotation,
+                                    static.keyframe_translation, static.max_imu_time)
+    win = select(has_matches, solved, win)
+    ba_cost = torch.where(has_matches, info["final_cost"], 0.0)
+    ba_iters = torch.where(has_matches, info["iterations"], 0)
     kf = win.is_keyframe & has_matches
-    if static.marg_prior and ba_h is not None and bool(kf & (win.n_act >= wsize)):
-        win = ba_mod.marginalize_prior(win, ba_h, static.marg_forget)
+    if static.marg_prior:
+        do_marg = kf & (win.n_act >= wsize)
+        # the side not taken gets a benign information matrix, so that its
+        # solve and eigendecomposition see finite, well-conditioned input
+        eye = torch.eye(15 * wsize, dtype=win.R.dtype, device=win.R.device)
+        ba_h = torch.where(do_marg, info["marg_h"], eye)
+        win = select(do_marg, ba_mod.marginalize_prior(win, ba_h, static.marg_forget), win)
 
     new_bg = torch.where(kf, win.ics.bg_i[-1] + win.dbg[-1], state.bg)
     new_ba = torch.where(kf, win.ics.ba_i[-1] + win.dba[-1], state.ba)
-    fresh = pre.init_state(dev)
-    preint = pre.PreintState(*(
-        torch.where(kf, a, b) for a, b in zip(fresh, state.preint)
-    ))
+    preint = select(kf, pre.init_state(win.R.device), state.preint)
     return (state._replace(win=win, preint=preint, bg=new_bg, ba=new_ba),
             ba_cost, ba_iters)
 
@@ -288,13 +322,13 @@ def draw_ransac_uniforms(generator: torch.Generator, device):
             torch.rand(shape, generator=generator, device=device))
 
 
-def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
-            generator: torch.Generator, consts: VIOConstants, static: VIOStatic,
-            ransac_u=None):
-    """One steady-state frame. Returns (new_state, metrics), metrics as
-    device tensors. `ransac_u` overrides the RANSAC uniforms drawn from
-    `generator` (the parity tests pass JAX's)."""
-    dev = state.win.R.device
+def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
+               consts: VIOConstants, static: VIOStatic):
+    """The frame step after ORB extraction, for one sequence: IMU
+    preintegration, matching, BA, marginalization and the pool update, with
+    no host read, so it maps over sequences with `torch.func.vmap`.
+    `ransac_u` holds the (stereo, temporal) [64, 8] uniforms. Returns
+    (new_state, metrics), metrics as device tensors."""
     win, pool = state.win, state.pool
     with _span("ok_step.imu"):
         pool = pool_mod.shift_window(pool, win.is_keyframe)
@@ -304,9 +338,7 @@ def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
         win = win_mod.push_constraint(win, ic, consts.gravity)
         p_pred = win.p[-1]
 
-    if ransac_u is None:
-        ransac_u = draw_ransac_uniforms(generator, dev)
-    cur, tr = front_end(img_l, img_r, pool, ransac_u, consts, static)
+    cur, tr = match_features(feats_l, feats_r, pool, ransac_u, static)
     pool = pool_mod.record_observations(pool, tr.slot, tr.matched, cur.px_l)
 
     state = state._replace(win=win, pool=pool, preint=preint)
@@ -315,8 +347,8 @@ def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
     win = state.win
     kf = win.is_keyframe & (tr.n_matches > 0)
     with _span("ok_step.pool"):
-        if bool(kf | ~torch.any(state.pool.valid)):
-            state = pool_update(state, cur, tr, consts, static)
+        do_pool = kf | ~torch.any(state.pool.valid)
+        state = select(do_pool, pool_update(state, cur, tr, consts, static), state)
 
     metrics = {
         "n_stereo": torch.sum(cur.valid),
@@ -339,11 +371,25 @@ def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
     return state, metrics
 
 
-def draw_sfm_uniforms(generator: torch.Generator, device):
-    """The (stereo RANSAC [64, 8], PnP RANSAC [512, 6]) uniforms of one SfM
-    frame."""
+def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
+            generator: torch.Generator, consts: VIOConstants, static: VIOStatic,
+            ransac_u=None):
+    """One steady-state frame: ORB extraction, then `track_step`. Returns
+    (new_state, metrics), metrics as device tensors. `ransac_u` overrides
+    the RANSAC uniforms drawn from `generator` (the parity tests pass
+    JAX's)."""
+    if ransac_u is None:
+        ransac_u = draw_ransac_uniforms(generator, state.win.R.device)
+    with _span("ok_step.extract"):
+        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+    return track_step(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts, static)
+
+
+def draw_sfm_uniforms(generator: torch.Generator, device, solver: str = "dlt"):
+    """The (stereo RANSAC [64, 8], PnP RANSAC `pnp.uniform_shape(solver)`)
+    uniforms of one SfM frame."""
     return (torch.rand((ransac.N_HYPOTHESES, 8), generator=generator, device=device),
-            torch.rand((pnp.N_HYPOTHESES, 6), generator=generator, device=device))
+            torch.rand(pnp.uniform_shape(solver), generator=generator, device=device))
 
 
 def sfm_step(img_l, img_r, ref_desc, ref_xy, ref_valid, sfm_u,
@@ -351,7 +397,7 @@ def sfm_step(img_l, img_r, ref_desc, ref_xy, ref_valid, sfm_u,
     """Structure-from-motion bootstrap against the reference keyframe
     (`FeatureTracker::structFromMotion`): stereo match -> RANSAC ->
     triangulate -> match to the reference keyframe -> PnP RANSAC. `sfm_u`
-    is `draw_sfm_uniforms`' pair; `pnp_idx` [512, 6] replaces the PnP draw.
+    is `draw_sfm_uniforms`' pair; `pnp_idx` replaces the PnP draw.
     Returns (rvec, tvec, n_inliers, current left features), (rvec, tvec)
     taking current-camera points into the reference camera frame."""
     feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)

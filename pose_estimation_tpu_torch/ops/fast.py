@@ -26,6 +26,7 @@ y * W + x [N, C] int32 (invalid 0), subpixel x, y [N, C] (invalid 0).
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -190,10 +191,27 @@ def select_plan(h: int, w: int, bounds, border: int = 19) -> SelectPlan:
 
 
 @functools.lru_cache(maxsize=16)
+def plane_classes(bounds: tuple) -> tuple[tuple, int]:
+    """(content size of each class, planes per class): the planes split
+    into classes of `per` consecutive planes of equal content size, `per`
+    the largest such count. A level-major stack of b images has one class
+    per level (or per run of levels of equal size) of b planes, so K1's
+    plan has a row per level whatever the batch."""
+    runs, start = [], 0
+    for i in range(1, len(bounds) + 1):
+        if i == len(bounds) or bounds[i] != bounds[start]:
+            runs.append(i - start)
+            start = i
+    per = functools.reduce(math.gcd, runs)
+    return tuple(bounds[::per]), per
+
+
+@functools.lru_cache(maxsize=16)
 def _launch_table(h: int, w: int, bounds: tuple, border: int):
-    """(table, its address): int32 [7 * n + 1], the planes' content heights
-    and widths, then `select_plan`'s fields, as the kernel's launcher reads
-    them. Cached per stack shape and bounds: no numpy work per launch."""
+    """(table, its address): int32 [7 * n + 1], the n planes' (or plane
+    classes') content heights and widths, then `select_plan`'s fields, as
+    the kernel's launcher reads them. Cached per stack shape and bounds: no
+    numpy work per launch."""
     plan = select_plan(h, w, bounds, border)
     table = np.concatenate([[b[0] for b in bounds], [b[1] for b in bounds], *plan]).astype(
         np.int32)
@@ -207,13 +225,16 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     Replaces the TPU kernel `pose_estimation_tpu/ops/pallas_fast.py:
     _select_kernel` (via `fast_select_pallas`). On the H100 it is bound by
     the per-pixel stencil arithmetic (~127 float32 instructions a pixel of
-    the planes' content, most of them min/max). One launch: a fill block
-    per plane writes the invalid slots of the cells outside the plane's
-    work rectangle (`select_plan`), and one block per 32 x 128 tile of the
-    rectangles stages it with its halo in shared memory, scores it a
-    column per thread, gates it and selects with one warp per cell, so
-    only the selected slots reach device memory. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor runs `select_plain`."""
+    the planes' content, most of them min/max). One launch for a stack of
+    any number of images: the plan has a row per class of equally sized
+    planes (`plane_classes`: a level of the stack), the grid's y index is
+    the plane within its class. A fill block per plane writes the invalid
+    slots of the cells outside the plane's work rectangle (`select_plan`),
+    and one block per 32 x 128 tile of the rectangles stages it with its
+    halo in shared memory, scores it a column per thread, gates it and
+    selects with one warp per cell, so only the selected slots reach device
+    memory. A CUDA tensor launches the kernel (or raises); a CPU tensor
+    runs `select_plain`."""
     if not stack.is_cuda:
         return select_plain(stack, bounds, th_hi, th_lo, border, k_per_cell)
     n, h, w = stack.shape
@@ -222,7 +243,8 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     if w % CELL or len(bounds) != n:
         # other widths take K3 (`orb.extract_batch`)
         raise ValueError(f"bad shape {tuple(stack.shape)} / {len(bounds)} bounds")
-    _, table_ptr = _launch_table(h, w, tuple(bounds), int(border))
+    cls_bounds, per = plane_classes(tuple(bounds))
+    _, table_ptr = _launch_table(h, w, cls_bounds, int(border))
     ncr = -(-h // BAND) * BAND // CELL
     ncx = w // CELL
     c = ncr * ncx * k_per_cell
@@ -233,7 +255,7 @@ def fast_select(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     err = kernels.library().fast_select_launch(
         stack.data_ptr(), table_ptr,
         vals.data_ptr(), codes.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-        n, h, w, ncr, ncx, float(th_hi), float(th_lo), int(border),
+        len(cls_bounds), per, h, w, ncr, ncx, float(th_hi), float(th_lo), int(border),
         int(k_per_cell), BAND, TILE_W, torch.cuda.current_stream(stack.device).cuda_stream,
     )
     kernels.check(err, "fast_select")

@@ -82,7 +82,7 @@ def library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fast_select_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, i, i, p]
+    lib.fast_select_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, i, i, i, p]
     lib.fast_select_launch.restype = i
     lib.sample_patches_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.sample_patches_launch.restype = i

@@ -299,10 +299,3 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig, oc: OrbConstants) -> OrbFe
         xy=xy * scale[..., None], angle=ang.reshape(b, k_tot), score=score, level=level,
         desc=desc.reshape(b, k_tot, N_PAIRS), valid=valid,
     )
-
-
-def extract_pair(img_a, img_b, cfg: OrbConfig, oc: OrbConstants):
-    """Features of a stereo pair, both images in one batch."""
-    feats = extract_batch(torch.stack([img_a, img_b]), cfg, oc)
-    return (OrbFeatures(*(f[0] for f in feats)),
-            OrbFeatures(*(f[1] for f in feats)))

@@ -2,15 +2,16 @@
 
 Counterpart of `pose_estimation_tpu/ops/pnp.py` (the SfM bootstrap's
 `cv::solvePnPRansac`): 512 minimal-sample hypotheses solved at once by
-DLT or EPnP, scored against every correspondence with an 8-px gate, the
-best polished by two rounds of weighted Gauss-Newton on its inliers. The
-returned (rvec, t) map object points into the camera frame:
+DLT or EPnP (or 128 three-point samples solved by P3P, each giving its up
+to 4 roots as hypotheses), scored against every correspondence with an
+8-px gate, the best polished by two rounds of weighted Gauss-Newton on its
+inliers. The returned (rvec, t) map object points into the camera frame:
 x_cam = R(rvec) X + t.
 
-The draw takes its uniforms `u` [512, sample] (or the index tensor `idx`
-itself) as an argument; `ransac.sample_indices` turns uniforms into the
-indices `jax.random.choice(key, n, shape, p=mask)` draws. The P3P solver
-(`ops/p3p.py` in the JAX package) is not ported yet and raises.
+The draw takes its uniforms `u` [samples, sample size] (`uniform_shape`)
+or the index tensor `idx` itself as an argument; `ransac.sample_indices`
+turns uniforms into the indices `jax.random.choice(key, n, shape,
+p=mask)` draws.
 """
 
 from __future__ import annotations
@@ -23,7 +24,14 @@ from pose_estimation_tpu_torch.ops.ransac import sample_indices
 from pose_estimation_tpu_torch.utils import lie
 
 N_HYPOTHESES = 512
-SOLVER_SAMPLE_SIZE = {"dlt": 6, "epnp": 6}
+SOLVER_SAMPLE_SIZE = {"dlt": 6, "epnp": 6, "p3p": 3}
+
+
+def uniform_shape(solver: str) -> tuple[int, int]:
+    """(samples, sample size) of the draw: P3P keeps the hypothesis budget
+    with a quarter of the samples, each giving up to 4 roots."""
+    sample = SOLVER_SAMPLE_SIZE[solver]
+    return (N_HYPOTHESES // 4 if solver == "p3p" else N_HYPOTHESES), sample
 
 
 class PnPResult(NamedTuple):
@@ -200,22 +208,31 @@ def gauss_newton_pose(obj, img_n, weights, rvec0, tvec0, iters: int = 10):
 def pnp_ransac(obj, px, mask, k_mat, u=None, threshold_px: float = 8.0,
                gn_iters: int = 10, solver: str = "dlt", idx=None) -> PnPResult:
     """PnP RANSAC over correspondences obj [N, 3] <-> px [N, 2] where `mask`
-    holds. The hypotheses' samples are `idx` [512, 6] if given, else drawn
-    from the uniforms `u` [512, 6]. `solver` is "dlt" (the reference's
-    SOLVEPNP_ITERATIVE) or "epnp" (SOLVEPNP_EPNP/DLS/UPNP)."""
-    if solver not in SOLVER_SAMPLE_SIZE:
-        raise NotImplementedError(
-            f"PnP solver {solver!r} is not ported (solve_pnp 2 and 5 select P3P, "
-            "whose solver ops/p3p.py the port does not have yet)")
+    holds. The hypotheses' samples are `idx` [`uniform_shape(solver)`] if
+    given, else drawn from the uniforms `u` of that shape. `solver` is
+    "dlt" (the reference's SOLVEPNP_ITERATIVE), "epnp"
+    (SOLVEPNP_EPNP/DLS/UPNP) or "p3p" (SOLVEPNP_P3P/AP3P: each sample's up
+    to 4 roots are separate hypotheses, a NaN root scores no inlier)."""
     fx, fy = k_mat[0, 0], k_mat[1, 1]
     cx, cy = k_mat[0, 2], k_mat[1, 2]
     img_n = torch.stack([(px[:, 0] - cx) / fx, (px[:, 1] - cy) / fy], dim=-1)
     thr_n2 = (threshold_px / ((fx + fy) * 0.5)) ** 2
     if idx is None:
         idx = sample_indices(mask, u)
-    pose = _dlt_pose if solver == "dlt" else _epnp_pose
-    r_h, t_h = pose(obj[idx], img_n[idx])
+    if idx.shape[-1] != SOLVER_SAMPLE_SIZE[solver]:
+        raise ValueError(f"the {solver!r} solver takes samples of {SOLVER_SAMPLE_SIZE[solver]} "
+                         f"points, not {idx.shape[-1]}")
+    if solver == "p3p":
+        from pose_estimation_tpu_torch.ops.p3p import p3p_solve
 
+        r_h, t_h = p3p_solve(obj[idx], img_n[idx])
+        r_h, t_h = r_h.reshape(-1, 3, 3), t_h.reshape(-1, 3)
+    else:
+        pose = {"dlt": _dlt_pose, "epnp": _epnp_pose}[solver]
+        r_h, t_h = pose(obj[idx], img_n[idx])
+
+    # a NaN hypothesis compares false everywhere: no inliers, and the
+    # argmax runs over the integer counts, where NaN cannot win
     inl = (_reproj_err2(r_h, t_h, obj, img_n) < thr_n2) & mask[None, :]
     best = torch.argmax(torch.sum(inl, dim=1))
     inliers = inl[best]

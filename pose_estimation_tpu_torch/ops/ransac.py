@@ -28,14 +28,26 @@ class RansacResult(NamedTuple):
     n_inliers: torch.Tensor
 
 
+def _row_sum(x):
+    """Sum of the vector `x` in the order a lone contiguous row gets, also
+    under vmap. There a batch's rows lie end to end, so a row whose length
+    is not a multiple of 4 starts at another 16-byte alignment in each
+    lane, and CUDA's vectorized reduction adds the unaligned head apart:
+    the sum then depends on the lane's place in the batch. The row is
+    padded to a multiple of 4 and the view of its first n summed."""
+    n = x.shape[-1]
+    pad = -n % 4
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad)])[:n]
+    return torch.sum(x)
+
+
 def _normalize(pts, mask):
     """Hartley normalization over valid points: zero mean, mean dist sqrt 2."""
     wsum = torch.clamp(torch.sum(mask), min=1)
     mean = torch.sum(torch.where(mask[:, None], pts, 0.0), dim=0) / wsum
     d = torch.linalg.norm(pts - mean, dim=1)
-    scale = math.sqrt(2.0) / torch.clamp(
-        torch.sum(torch.where(mask, d, 0.0)) / wsum, min=1e-9
-    )
+    scale = math.sqrt(2.0) / torch.clamp(_row_sum(torch.where(mask, d, 0.0)) / wsum, min=1e-9)
     zero = torch.zeros_like(scale)
     one = torch.ones_like(scale)
     t = torch.stack([

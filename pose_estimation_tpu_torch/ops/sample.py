@@ -8,11 +8,12 @@ moments m10, m01 over the radius-15 circle, the rotation (cos, sin) =
 rounded half to even and sampled on the 7x7 sigma=2 Gaussian-blurred patch,
 the blur folded into separable taps exp(-d^2/8)/norm. All in float32.
 
-`sample_patches` samples every keypoint of every pyramid level in one
-launch of `csrc/sample_patches.cu`, reading the level-major plane stack and
-reflecting at each plane's content edge; on a CPU tensor it runs the
-all-levels twin `sample_stack_plain`, which runs the per-level twin
-`sample_patches_plain` on each plane's content.
+`sample_patches` samples every keypoint of every pyramid level of every
+image in one launch of `csrc/sample_patches.cu`, reading the level-major
+plane stack and reflecting at each plane's content edge (all images of a
+level share one content size); on a CPU tensor it runs the all-levels twin
+`sample_stack_plain`, which runs the per-level twin `sample_patches_plain`
+on each plane's content.
 """
 
 from __future__ import annotations
@@ -139,9 +140,11 @@ def sample_stack_plain(stack: torch.Tensor, bounds, xy: torch.Tensor, budgets,
 def sample_patches(stack: torch.Tensor, bounds, xy: torch.Tensor, budgets,
                    pool_xy: torch.Tensor) -> torch.Tensor:
     """Kernel K2: IC moments + rotated, blurred pool-point samples of every
-    keypoint of every level, one launch. stack [n_levels * B, H, W] (the
-    level-major zero-padded plane stack of `orb.plane_stack`), bounds
-    [(lh, lw)] per plane, xy [B, K_tot, 2] plane-local keypoints, level l
+    keypoint of every level of every image, one launch. stack [n_levels *
+    B, H, W] (the level-major zero-padded plane stack of
+    `orb.plane_stack`), bounds [(lh, lw)] per plane, equal within a level
+    (the kernel keeps a row per level, so B is unbounded), xy [B, K_tot, 2]
+    plane-local keypoints, level l
     owning slots `level_offsets(budgets)[l:l + 2]` of each image, pool_xy
     [P, 2] -> packed [B, K_tot, P + 2] float32 (the P samples, m10, m01).
 

@@ -9,29 +9,35 @@ CPU); the host only sequences them. The host reads device values at the
 points where the JAX package does: each SfM frame's PnP result, the
 initializer's plausibility gates, the gravity refinements and the health
 check every `reinit_check_every` OK frames (one transfer for the pending
-frames); `models.vio.ok_step` has its own per-frame branch reads.
+frames); `models.vio.ok_step` reads nothing. With `metrics_jsonl` each OK
+frame's metrics are also written as a JSON line (a host read per frame).
+`save_checkpoint` and `load_checkpoint` carry the device state and the
+host state a resumed run needs to continue identically, the random
+generator's state included.
 
-Not ported yet: checkpoints, the live viewer, `metrics_jsonl`, the staged
-OK path and the keyframe-history refresh (`refresh_kf_hist`, off by
-default in the JAX package).
+Not ported yet: the live viewer, the staged OK path and the
+keyframe-history refresh (`refresh_kf_hist`, off by default in the JAX
+package).
 """
 
 from __future__ import annotations
 
+import json
 from enum import Enum
 
 import numpy as np
 import torch
 
+from pose_estimation_tpu_torch import checkpoint as ckpt
 from pose_estimation_tpu_torch.backend import init_solvers
 from pose_estimation_tpu_torch.camera import CameraModel
 from pose_estimation_tpu_torch.imu import preintegration as pre
 from pose_estimation_tpu_torch.imu.preintegration import ImuConstraint
 from pose_estimation_tpu_torch.models import vio as vio_mod
-from pose_estimation_tpu_torch.ops import pnp
 from pose_estimation_tpu_torch.utils import lie
 from pose_estimation_tpu_torch.utils.config import VIOConfig
 from pose_estimation_tpu_torch.utils.precision import require_cuda
+from pose_estimation_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 
 class State(Enum):
@@ -80,9 +86,11 @@ def reseed_window(win, R, v, p, ics):
 class VisualInertialSLAM:
     def __init__(self, cfg: VIOConfig, verbose: bool = False, seed: int = 0,
                  reinit_on_bias_corruption: bool = True, reinit_check_every: int = 8,
-                 refine_sigmas: tuple[float, float] = (2.0, 2.0), device="cuda"):
+                 refine_sigmas: tuple[float, float] = (2.0, 2.0), device="cuda",
+                 metrics_jsonl: str | None = None):
         self.cfg = cfg
         self.verbose = verbose
+        self._metrics_sink = open(metrics_jsonl, "w") if metrics_jsonl else None
         self.device = (require_cuda() if torch.device(device).type == "cuda"
                        else torch.device(device))
         dev = self.device
@@ -117,9 +125,6 @@ class VisualInertialSLAM:
         self.max_init_velocity = 20.0
         self.cm = CameraModel.from_config(cfg)
         self.consts, self.static = vio_mod.build_constants(cfg, self.cm, dev)
-        if self.static.pnp_solver not in pnp.SOLVER_SAMPLE_SIZE:
-            raise NotImplementedError(
-                f"solve_pnp={cfg.solve_pnp} selects P3P, which the port does not have yet")
 
         self.state = State.SYNCHRONIZING
         self.vio = vio_mod.init_vio_state(self.static, dev)
@@ -248,7 +253,7 @@ class VisualInertialSLAM:
                 ref = self._ref_feats
                 rvec, tvec, n_inl, feats_l = vio_mod.sfm_step(
                     img_l, img_r, ref.desc, ref.xy, ref.valid,
-                    vio_mod.draw_sfm_uniforms(self._gen, self.device),
+                    vio_mod.draw_sfm_uniforms(self._gen, self.device, self.static.pnp_solver),
                     self.consts, self.static,
                 )
                 r_np = rvec.double().cpu().numpy()
@@ -291,6 +296,11 @@ class VisualInertialSLAM:
                       f"kf={bool(metrics['is_keyframe'])} "
                       f"pool={int(metrics['pool_size'])} "
                       f"ba_iters={int(metrics['ba_iters'])}")
+            if self._metrics_sink is not None:
+                self._metrics_sink.write(json.dumps({"ts": img_ts, **{
+                    k: (float(v) if v.ndim == 0 else v.tolist())
+                    for k, v in metrics.items() if not k.startswith("rec_")}}) + "\n")
+                self._metrics_sink.flush()
             self._frame_count += 1
             # device scalars wait here and are read in one transfer every
             # reinit_check_every frames; the streaks still advance per frame
@@ -551,6 +561,61 @@ class VisualInertialSLAM:
         self._kf_hist = []
         self._kfs_since_refine = 0
         self.state = State.INITIALIZING
+
+    # ---- checkpoints
+
+    def save_checkpoint(self, path: str):
+        """Write the device state and the host state a resumed run needs:
+        the state machine's position, the frame count, the queued IMU
+        samples, the health and recovery counters, the keyframe history,
+        the pending health snapshots and the random generator's state."""
+        def ser(tree):
+            return [leaf.tolist() for leaf in tree_leaves(tree)]
+
+        ckpt.save_checkpoint(path, self.vio, meta={
+            "state": self.state.name,
+            "frame_count": self._frame_count,
+            "generator": self._gen.get_state().tolist(),
+            "imu_ts": list(self._imu_ts),
+            "imu_data": [list(map(float, row)) for row in self._imu_data],
+            "low_track_streak": self._low_track_streak,
+            "corrupt_streak": self._corrupt_streak,
+            "warm_streak": self._warm_streak,
+            "kfs_since_refine": self._kfs_since_refine,
+            "kf_hist": [ser(h) for h in self._kf_hist],
+            "pending_health": [[int(n), bool(r), bool(k), ser(snap)]
+                               for n, r, k, snap in self._pending_health],
+        })
+
+    def load_checkpoint(self, path: str):
+        """Resume from a checkpoint written by save_checkpoint, onto this
+        object's device."""
+        dev = self.device
+        self.vio, meta = ckpt.load_checkpoint(path, self.static, dev)
+        self.state = State[meta.get("state", "OK")]
+        self._frame_count = int(meta.get("frame_count", 0))
+        if "generator" in meta:
+            self._gen.set_state(torch.tensor(meta["generator"], dtype=torch.uint8))
+        self._imu_ts = [int(t) for t in meta.get("imu_ts", [])]
+        self._imu_data = [np.asarray(r, np.float64) for r in meta.get("imu_data", [])]
+        self._low_track_streak = int(meta.get("low_track_streak", 0))
+        self._corrupt_streak = int(meta.get("corrupt_streak", 0))
+        self._warm_streak = int(meta.get("warm_streak", 0))
+        self._kfs_since_refine = int(meta.get("kfs_since_refine", 0))
+
+        win = self.vio.win
+        template = (win.R[-1], win.p[-1], win.v[-1], ImuConstraint(*(a[-1] for a in win.ics)))
+
+        def deser(leaves):
+            return tree_unflatten(template, iter(
+                torch.tensor(v, dtype=t.dtype, device=dev)
+                for v, t in zip(leaves, tree_leaves(template))))
+
+        self._kf_hist = [deser(h) for h in meta.get("kf_hist", [])]
+        self._pending_health = [
+            (torch.tensor(n, device=dev), torch.tensor(r, device=dev),
+             torch.tensor(k, device=dev), deser(snap))
+            for n, r, k, snap in meta.get("pending_health", [])]
 
     # ---- results
 

@@ -296,8 +296,8 @@ def sim_frames(cfg: VIOConfig, n_frames: int, imu_noise: float = 2.4e-3,
     return frames, gyrs, accs, mask, truth
 
 
-def seeded_state(static, truth, device):
-    """A fresh VIOState with every window frame at frame 0's true start
+def seeded_state(static, truth, device, j: int = 0):
+    """A fresh VIOState with every window frame at frame j's true start
     state (`tests/sim.py:seeded_state`): the stand-in for the host state
     machine's SYNC/SFM/INIT phases."""
     import torch
@@ -311,7 +311,7 @@ def seeded_state(static, truth, device):
         return torch.as_tensor(np.broadcast_to(a, shape).copy(), dtype=torch.float32,
                                device=device)
 
-    r0, p0, v0 = truth(0)
+    r0, p0, v0 = truth(j)
     return state._replace(win=state.win._replace(
         R=rep(r0, (wlen, 3, 3)), p=rep(p0, (wlen, 3)), v=rep(v0, (wlen, 3))))
 

@@ -133,6 +133,26 @@ def test_launch_table_layout():
     assert fast._launch_table(240, 320, bounds, BORDER)[1] == ptr
 
 
+def test_plane_classes():
+    """K1's plan has a row per class of consecutive, equally sized planes:
+    a level of a level-major stack of any number of images, or a single
+    plane where sizes do not repeat."""
+    for images in (1, 2, 16, 64):
+        bounds = tuple(_pyramid_bounds(480, 752, 8, images))
+        assert fast.plane_classes(bounds) == (tuple(bounds[::images]), images)
+    rand = tuple(_random_bounds(0, 200, 272, 6))
+    assert fast.plane_classes(rand) == (rand, 1)
+    a, b = (100, 128), (80, 112)
+    assert fast.plane_classes((a, a, b, b, b, b)) == ((a, b, b), 2)
+    assert fast.plane_classes((a, a, a, b, b)) == ((a, a, a, b, b), 1)
+    # the classes' plan, per image, is the per-plane plan of one image
+    bounds = tuple(_pyramid_bounds(480, 752, 8, 8))
+    cls, per = fast.plane_classes(bounds)
+    one = fast.select_plan(480, 752, cls, BORDER)
+    full = fast.select_plan(480, 752, bounds, BORDER)
+    assert per * one.first[-1] == full.first[-1] == 8 * 566 // 2
+
+
 # ---- on the card: the kernel against its twin at these plans (skipped
 # without a GPU)
 
@@ -160,3 +180,36 @@ def test_fast_select_kernel_matches_twin_at_the_plan_on_gpu(gpu, h, w, levels):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert float((got[2] - ref[2]).abs().max()) <= 1e-5
     assert float((got[3] - ref[3]).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernels_take_a_batched_stack_in_one_launch_on_gpu(gpu):
+    """ORB extraction of 8 stereo pairs (16 images, 8 levels: 128 planes,
+    beyond the 64 the kernels once took by value): one K1 and one K2
+    launch, K1 equal to its twin on that stack (scores and codes exactly,
+    subpixel within 1e-5), K2's moments within 1e-5 of the largest."""
+    from pose_estimation_tpu_torch.ops import sample
+
+    cfg = orb.OrbConfig(n_features=300)
+    oc = orb.build_orb_constants(128, 160, cfg, gpu)
+    imgs = _stack(4, 128, 160, [(128, 160)] * 16).to(gpu)
+    before = (fast.fast_select.launches, sample.sample_patches.launches)
+    feats = orb.extract_batch(imgs, cfg, oc)
+    torch.cuda.synchronize()
+    assert (fast.fast_select.launches, sample.sample_patches.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert feats.xy.shape[0] == 16 and bool(torch.isfinite(feats.angle).all())
+    stack, bounds = orb.plane_stack(imgs, cfg, oc)
+    assert stack.shape[0] == 128
+    got = fast.fast_select(stack, bounds, 20.0, 7.0, BORDER, KPC)
+    ref = fast.select_plain(stack, bounds, 20.0, 7.0, BORDER, KPC)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert float((got[2] - ref[2]).abs().max()) <= 1e-5
+    budgets = orb.level_budgets(cfg)
+    kps = orb.detect(stack, bounds, cfg, budgets[0])
+    xy = torch.cat([kps.xy[lvl * 16:(lvl + 1) * 16, :kb] for lvl, kb in enumerate(budgets)],
+                   dim=1).contiguous()
+    args = (stack, bounds, xy, budgets, oc.pool_xy)
+    g2, r2 = sample.sample_patches(*args), sample.sample_stack_plain(*args)
+    n_pool = oc.pool_xy.shape[0]
+    assert (g2[..., n_pool:] - r2[..., n_pool:]).abs().max() <= 1e-5 * r2[..., n_pool:].abs().max()

@@ -368,7 +368,17 @@ def test_pnp_ransac_with_jax_draws(solver, seed):
 
 
 def test_pnp_p3p_raises():
+    """P3P raises only on a draw of the wrong sample size (the 6-point
+    solvers' [512, 6]); on its own [128, 3] draw it finds the pose within
+    the noise (1e-2 rad and m) and the inliers."""
     obj, px, mask, k = _pnp_problem(0)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="P3P"):
+    with pytest.raises(ValueError, match="p3p"):
         tpnp.pnp_ransac(t(obj), t(px), t(mask), t(k), torch.rand(512, 6), solver="p3p")
+    assert tpnp.uniform_shape("p3p") == (128, 3)
+    got = tpnp.pnp_ransac(t(obj), t(px), t(mask), t(k),
+                          torch.rand(128, 3, generator=torch.Generator().manual_seed(0)),
+                          solver="p3p")
+    _close(got.rvec, np.array([0.01, -0.012, 0.008]), 1e-2)
+    _close(got.tvec, np.array([0.05, -0.02, 0.08]), 1e-2)
+    assert int(got.n_inliers) > 150
