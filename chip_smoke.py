@@ -62,10 +62,22 @@ kernel counts set to 0 just before and read just after:
   launch a frame, under the divergence guard (at least half the lanes
   within 2 x distance + 1 m, none beyond + 10 m), the second frame run
   again per lane against the single-sequence `ok_step` from the same
-  state and uniforms, and a checkpoint in the middle of a state-machine
-  run on the card that the resumed object must continue identically.
+  state and uniforms, the keyframe full-BA branch under `torch.func.vmap`
+  held lane by lane against each lane's own solve, and a checkpoint in
+  the middle of a state-machine run on the card that the resumed object
+  must continue identically;
+- the entry points: a EuRoC-format directory at 752x480 (20 Hz) and a
+  KITTI raw directory at 1242x375 (10 Hz), written from the simulator with
+  PNGs whose rows cycle through the five filters (the C PNG unfilter held
+  bit-equal to its numpy twin on every frame), replayed through
+  `run_euroc.main` (K1 and K2 once per extraction), through the CLI's body
+  with keyframe full BA, and through `run_kitti.main` (K3 and K2): each
+  must reach OK, stay finite and under 2 x distance + 1 m, and write the
+  JAX package's `states.csv` format; the profiler counts a keyframe's and
+  another frame's kernels.
 
-Any failure exits non-zero. The second-to-last line is a JSON summary of
+The 16-frame chain of the kernel path also runs once more with keyframe
+full BA, under the same divergence guard. Any failure exits non-zero. The second-to-last line is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
@@ -216,6 +228,22 @@ FP32_INSTR_PER_S = 67e12 / 2
 # arcs from three-long extrema, takes 183.)
 FAST_OPS_PER_PX = 16 + 2 * (24 + 16 + 7) + 1 + 8
 
+# Phase 10, the entry points: a EuRoC-format directory written from the
+# simulator at 752x480 (20 Hz for ENTRY_EUROC_S, 8 levels, 800 features,
+# keyframes at 0.1 rad or 0.15 m, the protocol's IMU noise) replayed by the
+# CLI, then by the CLI's body with keyframe full BA, and a KITTI raw
+# directory at 1242x375 (10 Hz for ENTRY_KITTI_S) by its CLI. In each EuRoC
+# run the profiler counts the kernels of OK frames from ENTRY_PROFILE_FROM
+# on until it has seen a keyframe and another frame, at most ENTRY_PROFILED
+# frames (a session costs seconds at ~15-27k kernels a frame).
+ENTRY_EUROC_S, ENTRY_KITTI_S = 2.5, 2.0
+ENTRY_PROFILE_FROM, ENTRY_PROFILED = 10, 6
+ENTRY_EUROC = dict(dataset="euroc", width=752, height=480, camera_frequency=20,
+                   level_pyramid=8, num_features=800, keyframe_rotation=0.1,
+                   keyframe_translation=0.15)
+# The header of the JAX package's `save_results` (its states.csv), whose
+# 17 columns every row of the port's must have.
+STATES_CSV_HEADER = "timestamp,qw,qx,qy,qz,px,py,pz,vx,vy,vz,bgx,bgy,bgz,bax,bay,baz"
 
 # kernels whose first profiler session in `device_ms` recorded no launch
 PROFILE_MISSES = []
@@ -995,6 +1023,32 @@ def batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth) -> dict
     out.update(launches=launches, ms_per_step=ms_step, frames_per_s=BATCH / ms_step * 1e3,
                lane_p_err=worst_p, lanes_agree=agree)
 
+    # the keyframe full-BA branch under vmap on the lanes' states after the
+    # chain, against each lane's own solve
+    full_static = dataclasses.replace(static, full_ba_keyframes=True)
+
+    def full_branch(win, pool):
+        return vio.keyframe_full_ba(win, pool, consts, full_static)
+
+    vbranch = torch.func.vmap(full_branch)
+    b_win, b_pool = vbranch(state.win, state.pool)
+    if not all(bool(torch.isfinite(t).all()) for t in (*b_win[:5], b_pool.pos)):
+        fail("full BA under vmap: non-finite window or landmarks")
+    dps = []
+    for j in range(BATCH):
+        s_win, _ = full_branch(batched.lane(state.win, j), batched.lane(state.pool, j))
+        dps.append(float((b_win.p[j] - s_win.p).abs().max()))
+    moved = float((b_win.p - state.win.p).abs().max())
+    full_ms = cuda_ms(lambda: vbranch(state.win, state.pool), reps=5, warm=1)
+    full_agree = sum(d <= BATCH_TOL_P for d in dps)
+    print(f"keyframe full BA under vmap, B = {BATCH}: {full_ms:.2f} ms a call; moved the "
+          f"windows by up to {moved:.4f} m; each lane against its own solve, largest position "
+          f"difference m: {[round(d, 6) for d in dps]} ({full_agree} within {BATCH_TOL_P} m)")
+    if full_agree < BATCH_MIN_AGREE or max(dps) > BATCH_LOOSE_P:
+        fail(f"full BA under vmap: {full_agree} of {BATCH} lanes agree with their own solve, "
+             f"largest difference {max(dps):.3g} m")
+    out.update(full_ba_vmap_ms=full_ms, full_ba_lane_p_err=max(dps))
+
     # a checkpoint in the middle of a state-machine run on the card
     cfg, world, _, imu_seed = protocol_world("A2")
     first = VisualInertialSLAM(cfg, seed=5, device=dev)
@@ -1015,6 +1069,250 @@ def batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth) -> dict
           f"to {RESUME_END} s, state within {diff:.3g} and trajectory within {traj_diff:.3g} "
           f"of the uninterrupted run (tolerance {RESUME_TOL})")
     out["resume_diff"] = max(diff, traj_diff)
+    return out
+
+
+def is_keyframe(metrics) -> bool:
+    """A keyframe with matches: the frames whose full BA is kept."""
+    return bool(metrics["is_keyframe"]) and int(metrics["n_tracked"]) > 0
+
+
+@contextlib.contextmanager
+def observed_replays(profile=False):
+    """While the block runs, every `slam.VisualInertialSLAM` the code builds
+    (the CLIs' too) records its replay on `.observed`: the states it passed
+    through and the seconds to its first OK frame; per OK frame the host ms
+    of `process` (to a synchronize), the kernel launches and metrics of its
+    `ok_step` and the full-BA iterations (where configured); with
+    `profile`, the device kernels the profiler saw in OK frames from
+    ENTRY_PROFILE_FROM on until a keyframe and another frame were among
+    them (those frames' ms are left out); and the host seconds of each PNG
+    decode. Yields the list of the objects built."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from pose_estimation_tpu_torch import slam as slam_mod
+    from pose_estimation_tpu_torch.backend import full_ba as full_ba_mod
+    from pose_estimation_tpu_torch.io import png
+    from pose_estimation_tpu_torch.models import vio
+
+    made, decode_s, full_iters = [], [], []
+    base, step, read, solve = (slam_mod.VisualInertialSLAM, vio.ok_step, png.read_png,
+                               full_ba_mod.full_ba)
+    frames = []
+
+    def wanted() -> bool:
+        seen = {is_keyframe(f["metrics"]) for f in frames if f["device_kernels"] is not None}
+        return (profile and len(frames) >= ENTRY_PROFILE_FROM and len(seen) < 2
+                and len(frames) < ENTRY_PROFILE_FROM + ENTRY_PROFILED)
+
+    def counted_step(*args, **kwargs):
+        before = counters()
+        n_iters = len(full_iters)
+        if wanted():
+            with torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = step(*args, **kwargs)
+                torch.cuda.synchronize()
+            kernels = sum(e.device_type.name == "CUDA" and not e.name.startswith("ok_step.")
+                          for e in prof.events())
+        else:
+            out, kernels = step(*args, **kwargs), None
+        frames.append({"launches": {k: v - before[k] for k, v in counters().items()},
+                       "metrics": out[1], "device_kernels": kernels,
+                       "full_ba_iters": full_iters[n_iters] if len(full_iters) > n_iters
+                       else None})
+        return out
+
+    def recorded_solve(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        full_iters.append(out[3]["iterations"])
+        return out
+
+    def timed_read(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = read(*args, **kwargs)
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    class Observed(base):
+        def __init__(self, *args, **kwargs):
+            self.t_start = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            frames.clear()
+            self.observed = {"states": [self.state.name], "frames": frames,
+                             "decode_s": decode_s}
+            made.append(self)
+
+        def process(self, img_l, img_r, ts):
+            ok = self.state == slam_mod.State.OK
+            n = len(frames)
+            t0 = time.perf_counter()
+            out = super().process(img_l, img_r, ts)
+            if ok and len(frames) > n and frames[-1]["device_kernels"] is None:
+                torch.cuda.synchronize()
+                frames[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            if self.state.name != self.observed["states"][-1]:
+                self.observed["states"].append(self.state.name)
+                if self.state == slam_mod.State.OK:
+                    self.observed["to_ok_s"] = time.perf_counter() - self.t_start
+            return out
+
+    slam_mod.VisualInertialSLAM, vio.ok_step = Observed, counted_step
+    png.read_png, full_ba_mod.full_ba = timed_read, recorded_solve
+    try:
+        yield made
+    finally:
+        slam_mod.VisualInertialSLAM, vio.ok_step = base, step
+        png.read_png, full_ba_mod.full_ba = read, solve
+
+
+def check_replay(label, slam, gt, states_csv, extractions, launches, path_kernels) -> dict:
+    """Phase 10's gates on one finished replay: it reached OK, its state is
+    finite, every position lies within 2 x distance + 1 m of the truth,
+    its states.csv has the JAX package's header and 17 columns a row, and
+    the kernels of its path launched once per extraction (the others
+    never). Returns the replay's numbers."""
+    import torch
+
+    from pose_estimation_tpu_torch.io.ate import ate_rmse
+    from pose_estimation_tpu_torch.testing import run_errors
+
+    obs = slam.observed
+    frames = obs["frames"]
+    if slam.state.name != "OK" or not frames:
+        fail(f"{label}: ended in {slam.state.name} after {len(frames)} OK frames "
+             f"(states {obs['states']})")
+    win = slam.vio.win
+    if not all(bool(torch.isfinite(t).all()) for t in (*win[:5], slam.vio.pool.pos)) \
+            or not np.isfinite(slam.trajectory).all():
+        fail(f"{label}: non-finite state")
+    e = run_errors(slam, gt)
+    over = e["err"] - (DIVERGED_PER_M * e["dist"] + DIVERGED_M)
+    if (over > 0).any():
+        i = int(np.argmax(over))
+        fail(f"{label}: frame {i} {e['err'][i]:.3f} m off after {e['dist'][i]:.3f} m")
+    lines = states_csv.read_text().splitlines()
+    rows = [line.split(",") for line in lines[1:]]
+    if lines[0] != STATES_CSV_HEADER or len(rows) != len(slam.trajectory) \
+            or any(len(r) != 17 or not np.isfinite([float(v) for v in r]).all() for r in rows):
+        fail(f"{label}: states.csv is not the JAX package's format (header {lines[0]!r}, "
+             f"{len(rows)} rows)")
+    others = [k for k in launches if k not in path_kernels]
+    if any(launches[k] != extractions for k in path_kernels) or any(launches[k] for k in others):
+        fail(f"{label}: launches {launches} in {extractions} extractions ({path_kernels} "
+             "once each, the others never)")
+    ms = [f["ms"] for f in frames if "ms" in f]
+    ate = ate_rmse(slam.trajectory, gt)
+    path = ate / e["ate_pct"] * 100.0
+    out = {"ok_frames": len(frames), "states": obs["states"], "to_ok_s": obs["to_ok_s"],
+           "ms_per_ok_frame": float(np.mean(ms)), "ate_m": ate,
+           "ate_pct": e["ate_pct"], "path_m": path, "launches": launches,
+           "extractions": extractions, "worst_err_m": float(e["err"].max())}
+    decode = obs["decode_s"]
+    out["decode_ms_per_frame"] = 2e3 * float(np.mean(decode)) if decode else None
+    print(f"{label}: states {' -> '.join(obs['states'])} ({obs['to_ok_s']:.1f} s to OK, "
+          f"construction included); {len(frames)} OK frames, "
+          f"{out['ms_per_ok_frame']:.2f} ms per OK frame over {len(ms)}; PNG decode "
+          f"{out['decode_ms_per_frame']:.3f} ms a frame (2 images); ATE {ate:.4f} m, "
+          f"{e['ate_pct']:.3f} % of the {path:.3f}-m path, worst aligned error "
+          f"{out['worst_err_m']:.3f} m; {extractions} extractions, launches {launches}")
+    return out
+
+
+def entry_point_checks(dev) -> dict:
+    """Phase 10: the entry points. Writes a EuRoC-format directory at
+    752x480 and a KITTI raw directory at 1242x375 from the simulator (PNGs
+    whose rows cycle through the five filters), holds the C PNG unfilter
+    bit-equal to its numpy twin on every written frame, replays the EuRoC
+    directory through `run_euroc.main` (K1 and K2), again through the
+    CLI's body with keyframe full BA (`load_config(..., full_ba_keyframes=
+    True)` -> VisualInertialSLAM -> `io.euroc.run_euroc`), and the KITTI
+    directory through `run_kitti.main` (K3 and K2), each under
+    `check_replay`'s gates. Returns the phase's numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from pose_estimation_tpu_torch import load_config, run_euroc, run_kitti
+    from pose_estimation_tpu_torch import slam as slam_mod
+    from pose_estimation_tpu_torch.io import euroc as euroc_io
+    from pose_estimation_tpu_torch.io import png
+    from pose_estimation_tpu_torch.testing import sim_config, write_euroc, write_kitti
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ecfg = sim_config(**ENTRY_EUROC)
+        e_yml, mav0, n_e = write_euroc(tmp / "euroc", ecfg, ENTRY_EUROC_S)
+        kcfg = kitti_config()
+        k_yml, _, n_k, kgt = write_kitti(tmp / "kitti", kcfg, ENTRY_KITTI_S)
+        written = sorted(tmp.rglob("*.png"))
+        print(f"entry points: wrote {n_e} EuRoC frames at {ecfg.image_width}x"
+              f"{ecfg.image_height} and {n_k} KITTI frames at {kcfg.image_width}x"
+              f"{kcfg.image_height} ({len(written)} PNGs) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        c_s = 0.0
+        for path in written:
+            rows = png.read_filtered(str(path))
+            t1 = time.perf_counter()
+            got = png.unfilter(rows)
+            c_s += time.perf_counter() - t1
+            if not np.array_equal(got, png.unfilter_plain(rows)):
+                fail(f"PNG unfilter: the C unfilter differs from its numpy twin on {path.name}")
+        print(f"PNG unfilter: C bit-equal to the numpy twin on all {len(written)} written "
+              f"frames (every row filter type); C {c_s * 1e3 / len(written):.3f} ms an image, "
+              f"check {time.perf_counter() - t0:.1f} s")
+        out["png_frames_checked"] = len(written)
+
+        gt = euroc_io.EurocDataset(str(mav0)).ground_truth()
+        for label, full in (("EuRoC CLI", False), ("EuRoC, full BA", True)):
+            csv = tmp / f"states_{'full_ba' if full else 'default'}.csv"
+            zero_counters()
+            with counted_extractions() as extractions, observed_replays(profile=True) as made:
+                t0 = time.perf_counter()
+                if not full:
+                    run_euroc.main(["--config", str(e_yml), "--out", str(csv), "--ate"])
+                else:
+                    cfg = load_config(e_yml, dataset="euroc", full_ba_keyframes=True)
+                    slam = slam_mod.VisualInertialSLAM(cfg, device=dev)
+                    euroc_io.run_euroc(slam, euroc_io.EurocDataset(str(mav0)),
+                                       speed_up=cfg.speed_up)
+                    slam.save_results(str(csv))
+                wall = time.perf_counter() - t0
+            (slam,) = made
+            if slam.device != dev or slam.static.full_ba_keyframes != full:
+                fail(f"{label}: ran on {slam.device} with full BA "
+                     f"{slam.static.full_ba_keyframes}")
+            r = check_replay(label, slam, gt, csv, extractions[0], counters(),
+                             ("fast_select", "sample_patches"))
+            frames = slam.observed["frames"]
+            kf = [is_keyframe(f["metrics"]) for f in frames]
+            for name, pick in (("keyframe", True), ("other", False)):
+                counted = [f["device_kernels"] for f, k in zip(frames, kf)
+                           if k == pick and f["device_kernels"]]
+                r[f"device_kernels_{name}"] = float(np.mean(counted)) if counted else None
+                if full:
+                    iters = [int(f["full_ba_iters"]) for f, k in zip(frames, kf) if k == pick]
+                    r[f"full_ba_iters_{name}"] = float(np.mean(iters)) if iters else None
+            n_prof = sum(f["device_kernels"] is not None for f in frames)
+            r.update(keyframes=sum(kf), wall_s=wall, profiled_frames=n_prof)
+            print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; kernels a "
+                  f"frame by the profiler ({n_prof} OK frames from {ENTRY_PROFILE_FROM}): "
+                  f"keyframe {r['device_kernels_keyframe']}, other "
+                  f"{r['device_kernels_other']}"
+                  + (f"; full-BA LM iterations: keyframe {r['full_ba_iters_keyframe']}, "
+                     f"other {r['full_ba_iters_other']} (computed, not kept)" if full else "")
+                  + f"; {wall:.1f} s")
+            out["euroc_full_ba" if full else "euroc"] = r
+
+        kcsv = tmp / "states_kitti.csv"
+        zero_counters()
+        with counted_extractions() as extractions, observed_replays() as made:
+            run_kitti.main(["--config", str(k_yml), "--out", str(kcsv)])
+        (slam,) = made
+        out["kitti"] = check_replay("KITTI CLI", slam, kgt, kcsv, extractions[0], counters(),
+                                    ("fast_score_nms", "sample_patches"))
     return out
 
 
@@ -1128,6 +1426,15 @@ def main() -> None:
     if launches["fast_score_nms"] or launches["moment_maps"]:
         fail(f"ok_step on the kernel path at a width divisible by 16 launched K3 or K4: "
              f"{launches}")
+    full_static = dataclasses.replace(static, full_ba_keyframes=True)
+    full_launches, full_ms_frame, full_excess, full_extract = run_chain(
+        "ok_step, keyframe full BA", full_static)
+    if full_excess > DIVERGED_M:
+        fail(f"ok_step with full BA: diverged, {full_excess:.3f} m beyond {DIVERGED_PER_M} x "
+             "the distance")
+    if (full_launches["fast_select"], full_launches["sample_patches"]) != (full_extract,) * 2:
+        fail(f"ok_step with full BA: launches {full_launches} in {full_extract} extractions")
+    print(f"keyframe full BA: {full_ms_frame:.2f} ms/frame beside {ms_frame:.2f} without")
     map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
     map_chains = [run_chain(f"ok_step, map front end, seed {seed}", map_static, seed)
                   for seed in MAP_SEEDS]
@@ -1325,6 +1632,12 @@ def main() -> None:
         if got < need:
             fail(f"accuracy {run}: {got} of {len(RATE_SEEDS)} passes, fewer than {need}")
 
+    # ---- phase 10: the entry points (the replay CLIs, their datasets and
+    # configuration files written here)
+    t0 = time.perf_counter()
+    entry = entry_point_checks(dev)
+    print(f"entry points: {time.perf_counter() - t0:.1f} s")
+
     loaded = sorted(
         k for k, v in sys.modules.items() if v is not None
         and (k in ("jax", "pose_estimation_tpu")
@@ -1361,12 +1674,15 @@ def main() -> None:
             if name in batched_res else {})}
         for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
-        "kitti_ms_per_ok_frame": kitti_ms,
+        "kitti_ms_per_ok_frame": kitti_ms, "full_ba_ok_step_ms_per_frame": full_ms_frame,
+        "entry_points": entry,
         "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
                     "frames_per_s": batched_res["frames_per_s"],
                     "lane_p_err": batched_res["lane_p_err"],
                     "lanes_agree": batched_res["lanes_agree"],
-                    "resume_diff": batched_res["resume_diff"]},
+                    "resume_diff": batched_res["resume_diff"],
+                    "full_ba_vmap_ms": batched_res["full_ba_vmap_ms"],
+                    "full_ba_lane_p_err": batched_res["full_ba_lane_p_err"]},
         "profiler_sessions_repeated": PROFILE_MISSES}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

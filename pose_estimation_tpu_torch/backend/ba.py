@@ -125,7 +125,8 @@ def _prep(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
 
     return dict(
         wsize=wsize, lm_valid=lm_valid, obs_mask=obs_mask, err=err, f_blk=f_blk,
-        jac_pairs=jac_pairs, pairs_residual=pairs_residual,
+        jac_pairs=jac_pairs, pairs_residual=pairs_residual, is_imu=is_imu,
+        is_prior=is_prior, lts_imu=lts_imu, lts_pri=lts_pri,
         num_landmarks=torch.sum(lm_valid), num_observations=torch.sum(obs_mask),
     )
 

@@ -104,6 +104,33 @@ def imu_jacobians(R_i, p_i, v_i, dbg_i, dba_i, R_j, p_j, v_j, ic, gravity):
     return lt @ j_pose_i, lt @ j_vb_i, lt @ j_pose_j, lt @ j_vb_j
 
 
+def prior_residual(dr_j, dp_j, dv_j, ddbg_j, ddba_j,
+                   R_i, p_i, v_i, dbg_i, dba_i,
+                   R_j, p_j, v_j, dbg_j, dba_j,
+                   ic, gravity, prior_factor: float, lt=None):
+    """Whitened 15-residual of the anchor prior on frame j
+    (PriorCostFunction): the IMU residual with frame i's increments frozen
+    at zero and the information scaled by `prior_factor`."""
+    uR_j = R_j @ lie.so3_exp(dr_j)
+    corrected_dR = ic.dR @ lie.so3_exp(mv(ic.d_R_bg, dbg_i))
+    R_iT = R_i.transpose(-1, -2)
+    r_R = lie.so3_log(corrected_dR.transpose(-1, -2) @ (R_iT @ uR_j))
+    dt = ic.dt[..., None]
+    dt2 = ic.dt2[..., None]
+    r_v = mv(R_iT, v_j + dv_j - v_i - gravity * dt) - (
+        ic.dv + mv(ic.d_v_bg, dbg_i) + mv(ic.d_v_ba, dba_i)
+    )
+    r_p = mv(R_iT, p_j + mv(R_j, dp_j) - p_i - v_i * dt - gravity * (dt2 / 2)) - (
+        ic.dp + mv(ic.d_p_bg, dbg_i) + mv(ic.d_p_ba, dba_i)
+    )
+    r_bg = dbg_j + ddbg_j - dbg_i
+    r_ba = dba_j + ddba_j - dba_i
+    res = torch.cat([r_R, r_v, r_p, r_bg, r_ba], dim=-1)
+    if lt is None:
+        lt = whitener(ic.inv_cov * prior_factor)
+    return mv(lt, res)
+
+
 def prior_jacobians(R_i, dbg_i, R_j, ic, prior_factor: float):
     """(J_pose_j [.., 15, 6], J_vb_j [.., 15, 9]) of the anchor prior."""
     dtype, dev = R_i.dtype, R_i.device

@@ -7,8 +7,9 @@ with `processed_timestamps.txt`, interleaved `rate+1` IMU rows per image.
 
 A copy of `pose_estimation_tpu/io/kitti.py` that drives the port's
 `slam.VisualInertialSLAM`; the image reader is injected (`imread`) and
-defaults to OpenCV's. `tests/test_torch_slam.py` holds the copy equal to
-the original.
+defaults to `io/png.py:reader` on the replay's device, which reads the
+PNGs without OpenCV. `tests/test_torch_slam.py` and `tests/test_torch_io.py`
+hold the copy equal to the original.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from pose_estimation_tpu_torch.io import png
 
 
 class KittiDataset:
@@ -48,9 +51,7 @@ def run_kitti(slam, dataset: KittiDataset, max_num_imu: int, max_num_image: int,
     from pose_estimation_tpu_torch.slam import SensorType
 
     if imread is None:
-        import cv2
-
-        imread = lambda p: cv2.imread(p, cv2.IMREAD_GRAYSCALE)
+        imread = png.reader(slam.device)
 
     num_imu = 0
     num_image = 0

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The `.cu` sources are compiled at first use with `nvcc` for `sm_90a` into
+The `.cu` sources (the kernels, and the host-side PNG unfilter of
+`io/png.py`) are compiled at first use with `nvcc` for `sm_90a` into
 one shared library with a plain C interface, loaded with `ctypes`. The
 library lands in `pose_estimation_tpu_torch/build/` (git-ignored) under a
 name that carries the hash of the sources, the shared header and the
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
-           "moment_maps.cu", "stream_probe.cu")
+           "moment_maps.cu", "stream_probe.cu", "png_unfilter.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
@@ -94,6 +95,8 @@ def library() -> ctypes.CDLL:
     lib.moment_maps_smem_bytes.restype = ctypes.c_longlong
     lib.stream_probe_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.stream_probe_launch.restype = i
+    lib.png_unfilter.argtypes = [p, i, i, p]
+    lib.png_unfilter.restype = i
     return lib
 
 

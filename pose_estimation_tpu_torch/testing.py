@@ -18,6 +18,9 @@ of `benchmarks/chip_accuracy.py` for `chip_smoke.py` and
 from __future__ import annotations
 
 import dataclasses
+import struct
+import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -315,3 +318,195 @@ def seeded_state(static, truth, device, j: int = 0):
     return state._replace(win=state.win._replace(
         R=rep(r0, (wlen, 3, 3)), p=rep(p0, (wlen, 3)), v=rep(v0, (wlen, 3))))
 
+
+# ---- datasets on disk, in the formats the replay readers take
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """An 8-bit grayscale PNG of `img` [H, W] whose rows cycle through the
+    five row filters (None, Sub, Up, Average, Paeth), so that a reader of
+    these files runs every unfilter path."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8 or x.ndim != 2:
+        raise ValueError("write_png takes a [H, W] uint8 image")
+    h, w = x.shape
+    xi = x.astype(np.int64)
+    left = np.pad(xi, ((0, 0), (1, 0)))[:, :w]
+    up = np.pad(xi, ((1, 0), (0, 0)))[:h]
+    corner = np.pad(xi, ((1, 0), (1, 0)))[:h, :w]
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    preds = np.stack([np.zeros_like(xi), left, up, (left + up) >> 1, paeth])
+    kind = np.arange(h) % 5
+    filt = (xi - preds[kind, np.arange(h)]) & 0xFF
+    raw = np.concatenate([kind[:, None], filt], axis=1).astype(np.uint8).tobytes()
+
+    def chunk(kind_: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind_ + body
+                + struct.pack(">I", zlib.crc32(kind_ + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _yaml_mat(name: str, a) -> str:
+    a = np.asarray(a, np.float64)
+    rows, cols = (a.shape[0], 1) if a.ndim == 1 else a.shape
+    data = ", ".join(repr(float(x)) for x in a.reshape(-1))
+    return (f"{name}: !!opencv-matrix\n    rows: {rows}\n    cols: {cols}\n"
+            f"    dt: d\n    data: [ {data} ]\n")
+
+
+def write_config(path, cfg: VIOConfig, dataset_dir, extra: dict | None = None) -> None:
+    """A reference-format OpenCV-YAML configuration of `cfg` for replaying
+    `dataset_dir` (the format of `tools/render_euroc.py:write_config`).
+    A kitti configuration takes the profile's IMU keys and the reference
+    kitti.yml's spelling of the keyframe keys (`keyframe_rotation`);
+    `extra` adds keys (KITTI's `maxNumImu`, `maxNumImage`)."""
+    p = cfg.profile
+    s = ["%YAML:1.0", f"dataset: {dataset_dir}/", f"speedUp: {cfg.speed_up}", ""]
+    s += [f"imageWidth: {cfg.image_width}", f"imageHeight: {cfg.image_height}",
+          f"cameraFrequency: {cfg.camera_frequency}",
+          f"stdX: {cfg.std_x}", f"stdY: {cfg.std_y}", ""]
+    s += [_yaml_mat("camLeft", cfg.k_left), _yaml_mat("distLeft", cfg.dist_left),
+          _yaml_mat("camRight", cfg.k_right), _yaml_mat("distRight", cfg.dist_right),
+          _yaml_mat("rotationLeftToRight", cfg.r_lr),
+          _yaml_mat("translationLeftToRight", cfg.t_lr),
+          _yaml_mat("rotationImuToCamera", cfg.r_cb),
+          _yaml_mat("translationImuToCamera", cfg.t_cb)]
+    s += [f"samplingRate: {cfg.sampling_rate}",
+          f"{p.key_gyr_noise}: {cfg.gyr_noise}",
+          f"{p.key_gyr_walk}: {cfg.gyr_walk}",
+          f"{p.key_acc_noise}: {cfg.acc_noise}",
+          f"{p.key_acc_walk}: {cfg.acc_walk}", ""]
+    s += ["cvORB: 0", f"numberOfFeatures: {cfg.num_features}",
+          f"scaleFactor: {cfg.scale_factor}",
+          f"levelPyramid: {cfg.level_pyramid}",
+          "edgeThreshold: 31", "scoreType: 1", "patchSize: 31",
+          "fastThreshold: 20", "gridRow: 1", "gridCol: 1",
+          f"iniThFAST: {cfg.ini_th_fast}", f"minThFAST: {cfg.min_th_fast}",
+          f"matchRatio: {cfg.match_ratio}",
+          f"minMatchDist: {cfg.min_match_dist}",
+          f"maxVerticalPixelDist: {cfg.max_vertical_pixel_dist}",
+          f"maxFeatureAge: {cfg.max_feature_age}",
+          f"maxDepth: {cfg.max_depth}", ""]
+    rot_key, trans_key = (("keyframe_rotation", "keyframe_translation") if cfg.dataset == "kitti"
+                          else ("keyframeRotation", "keyframeTranslation"))
+    s += [f"{rot_key}: {cfg.keyframe_rotation}",
+          f"{trans_key}: {cfg.keyframe_translation}",
+          f"maxImuTime: {cfg.max_imu_time}",
+          f"maxGyrBias: {cfg.max_gyr_bias}",
+          f"maxAccBias: {cfg.max_acc_bias}",
+          f"sfmRotation: {cfg.sfm_rotation}",
+          f"sfmTranslation: {cfg.sfm_translation}",
+          f"solvePnP: {cfg.solve_pnp}", ""]
+    s += [f"max_num_iterations: {cfg.max_num_iterations}",
+          "max_solver_time_in_seconds: 10", "num_threads: 4",
+          "check_gradients: 0", f"gravity: {cfg.gravity_magnitude}",
+          f"priorFactor: {cfg.prior_factor}", ""]
+    s += ["viewScale: 1", "pointSize: 4", "landmarkSize: 2",
+          "cameraSize: 0.08", "cameraLineWidth: 3", "lineWidth: 2",
+          "viewpointX: 10", "viewpointY: 10", "viewpointZ: -30",
+          "viewpointF: 2000", "background: 0", "axisDirection: 2"]
+    s += [f"{k}: {v}" for k, v in (extra or {}).items()]
+    Path(path).write_text("\n".join(s) + "\n")
+
+
+def _imu_rows(sim: StereoInertialSim, n: int, imu_noise: float, seed: int):
+    """(t [n], gyro [n, 3], specific force [n, 3]) at the sampling rate from
+    t = 0, with the noise of the accuracy protocol (gyro sigma
+    `imu_noise`, accelerometer 10x) drawn from `seed`."""
+    nrng = np.random.default_rng(seed)
+    t = np.arange(n) / sim.cfg.sampling_rate
+    gyr, acc = np.zeros((n, 3)), np.zeros((n, 3))
+    for k in range(n):
+        gyr[k], acc[k] = sim.imu_at(t[k])
+        if imu_noise:
+            gyr[k] = gyr[k] + nrng.normal(0, imu_noise, 3)
+            acc[k] = acc[k] + nrng.normal(0, imu_noise * 10, 3)
+    return t, gyr, acc
+
+
+def write_euroc(out, cfg: VIOConfig, duration: float, n_landmarks: int = 150, seed: int = 0,
+                imu_noise: float = PROTOCOL_IMU_NOISE):
+    """Render the simulated world `seed` (family A) to EuRoC's format, as
+    `tools/render_euroc.py` does: `out/mav0` with `imu0`, `cam0`, `cam1`
+    (8-bit PNGs by `write_png`) and `state_groundtruth_estimate0`, and the
+    configuration `out/euroc_sim.yml`. The IMU runs past the last frame by
+    2 frame intervals + 8 samples (the reference's replay reads one row
+    more than elapses per frame). Returns (config path, mav0 path, number
+    of frames)."""
+    from scipy.spatial.transform import Rotation
+
+    out = Path(out)
+    sim = StereoInertialSim(cfg, n_landmarks=n_landmarks, seed=seed,
+                            y_max=max(11.0, 0.8 * duration + 5.0))
+    mav0 = out / "mav0"
+    for d in ("imu0", "cam0/data", "cam1/data", "state_groundtruth_estimate0"):
+        (mav0 / d).mkdir(parents=True, exist_ok=True)
+    frame_every = cfg.sampling_rate // cfg.camera_frequency
+    n_imu = int(duration * cfg.sampling_rate) + 2 * frame_every + 8
+    n_img = int(duration * cfg.sampling_rate) // frame_every + 1
+    t, gyr, acc = _imu_rows(sim, n_imu, imu_noise, seed + 10)
+    imu_rows = ["#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+                "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+                "a_RS_S_z [m s^-2]"]
+    imu_rows += [f"{int(round(t[k] * 1e9))}," + ",".join(repr(float(v)) for v in (*gyr[k], *acc[k]))
+                 for k in range(n_imu)]
+    img_rows = ["#timestamp [ns],filename"]
+    gt_rows = ["#timestamp,px,py,pz,qw,qx,qy,qz,vx,vy,vz"]
+    for j in range(n_img):
+        tj = j * frame_every / cfg.sampling_rate
+        ts = int(round(tj * 1e9))
+        for cam, img in zip(("cam0", "cam1"), sim.render(tj)):
+            write_png(mav0 / cam / "data" / f"{ts}.png", np.clip(img, 0, 255).astype(np.uint8))
+        img_rows.append(f"{ts},{ts}.png")
+        q = Rotation.from_matrix(sim.traj.rot(tj)).as_quat()
+        vals = (*sim.traj.pos(tj), q[3], q[0], q[1], q[2], *sim.vel_at(tj))
+        gt_rows.append(f"{ts}," + ",".join(repr(float(v)) for v in vals))
+    (mav0 / "imu0/data.csv").write_text("\n".join(imu_rows) + "\n")
+    for cam in ("cam0", "cam1"):
+        (mav0 / cam / "data.csv").write_text("\n".join(img_rows) + "\n")
+    (mav0 / "state_groundtruth_estimate0/data.csv").write_text("\n".join(gt_rows) + "\n")
+    write_config(out / "euroc_sim.yml", cfg, mav0)
+    return out / "euroc_sim.yml", mav0, n_img
+
+
+def write_kitti(out, cfg: VIOConfig, duration: float, n_landmarks: int = 150, seed: int = 0,
+                imu_noise: float = PROTOCOL_IMU_NOISE):
+    """Render the simulated world `seed` to KITTI raw's format (the layout
+    `io/kitti.py` reads): `oxts/processed/` with `timestamps.txt` and one
+    `ax ay az wx wy wz` file a sample, `image_00`/`image_01` with
+    `data/NNNNNNNNNN.png` and `processed_timestamps.txt`, and the
+    configuration `out/kitti_sim.yml` with `maxNumImu` and `maxNumImage`.
+    The replay reads rate + 1 samples an image, so the IMU runs on by one
+    sample a frame. Returns (config path, dataset path, number of frames,
+    ground truth [N, 4] rows (ts, x, y, z))."""
+    out = Path(out)
+    sim = StereoInertialSim(cfg, n_landmarks=n_landmarks, seed=seed,
+                            y_max=max(11.0, 0.8 * duration + 5.0))
+    oxts = out / "oxts" / "processed"
+    oxts.mkdir(parents=True, exist_ok=True)
+    rate = cfg.sampling_rate // cfg.camera_frequency
+    n_img = int(duration * cfg.camera_frequency) + 1
+    n_imu = n_img * (rate + 1) + 8
+    t, gyr, acc = _imu_rows(sim, n_imu, imu_noise, seed + 10)
+    (oxts / "timestamps.txt").write_text("\n".join(str(int(round(x * 1e9))) for x in t) + "\n")
+    for k in range(n_imu):
+        (oxts / f"{k:010d}.txt").write_text(" ".join(repr(float(v)) for v in (*acc[k], *gyr[k])))
+    gt = []
+    for cam in ("image_00", "image_01"):
+        (out / cam / "data").mkdir(parents=True, exist_ok=True)
+    for j in range(n_img):
+        tj = j / cfg.camera_frequency
+        for cam, img in zip(("image_00", "image_01"), sim.render(tj)):
+            write_png(out / cam / "data" / f"{j:010d}.png", np.clip(img, 0, 255).astype(np.uint8))
+        gt.append([int(round(tj * 1e9)), *sim.traj.pos(tj)])
+    stamps = "\n".join(str(int(r[0])) for r in gt) + "\n"
+    for cam in ("image_00", "image_01"):
+        (out / cam / "processed_timestamps.txt").write_text(stamps)
+    write_config(out / "kitti_sim.yml", cfg, out,
+                 extra={"maxNumImu": n_imu, "maxNumImage": n_img})
+    return out / "kitti_sim.yml", out, n_img, np.array(gt, np.float64)

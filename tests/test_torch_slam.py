@@ -399,7 +399,7 @@ def test_kitti_replay_copy_equals_original(tmp_path):
 
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "pose_estimation_tpu"):
+for name in ("jax", "jaxlib", "pose_estimation_tpu", "yaml", "cv2"):
     sys.modules[name] = None          # any import of them now fails
 import pose_estimation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -413,13 +413,14 @@ print("OK", len(names))
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
-    """Every module of the port imports with `jax` and the JAX package made
-    unimportable, and no source line of the port imports either."""
+    """Every module of the port (54) imports with `jax`, the JAX package,
+    PyYAML and OpenCV made unimportable, and no source line of the port
+    imports JAX or the JAX package."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[1]) >= 30
+    assert int(proc.stdout.split()[1]) >= 54
     pkg_dir = os.path.dirname(pose_estimation_tpu_torch.__file__)
     for m in pkgutil.walk_packages([pkg_dir], "pose_estimation_tpu_torch."):
         path = importlib.util.find_spec(m.name).origin
