@@ -76,6 +76,20 @@ kernel counts set to 0 just before and read just after:
   JAX package's `states.csv` format; the profiler counts a keyframe's and
   another frame's kernels.
 
+- the staged OK path: frames 6-15 of the kernel path's chain through the
+  four stages of `models.vio` (each timed to a synchronize: the per-stage
+  split of a frame), then through the fused `ok_step` from the same state
+  with the same uniforms, bit-equal, K1 and K2 once per staged frame; and
+  8 of those frames through `ok_scan`, bit-equal to 8 `ok_step` calls;
+- the EuRoC directory again through the CLI's body, unprofiled, without a
+  viewer, with a `LiveViewer` attached (its pushes counted: one pose per
+  OK frame, one keyframe commit per keyframe, landmarks every 10 frames)
+  and with `staged=True` (each stage timed), each under the replay gates;
+- the mesh: the sharded pool match's packed reduction against the
+  unsharded match on the card, then `parallel.multihost.dryrun`: 4
+  processes share the card over gloo as a (data 2, model 2) grid at EuRoC
+  width, each rank's lanes held to the single-process batched step.
+
 The 16-frame chain of the kernel path also runs once more with keyframe
 full BA, under the same divergence guard. Any failure exits non-zero. The second-to-last line is a JSON summary of
 the kernels; the last line is {"ok": true, "device": {...}}. Imports
@@ -245,6 +259,28 @@ ENTRY_EUROC = dict(dataset="euroc", width=752, height=480, camera_frequency=20,
 # 17 columns every row of the port's must have.
 STATES_CSV_HEADER = "timestamp,qw,qx,qy,qz,px,py,pz,vx,vy,vz,bgx,bgy,bgz,bax,bay,baz"
 
+# Phase 4b, the staged OK path: frames WARMUP..N_FRAMES-1 of phase 4's
+# kernel-path chain (generator seed 0) through the four stages of
+# `models.vio`, each waiting for the card before it returns (so each is
+# timed alone), then through the fused `ok_step` from the same state with
+# the same uniforms. The fused step is the stages' own code in one call,
+# so the two states should be bit-equal; a difference up to STAGED_TOL_P m
+# in the positions would be accepted with its cause printed. The first
+# SCAN_FRAMES of those frames also run through `ok_scan`, which must equal
+# the fused chain bit for bit.
+STAGED_TOL_P = 1e-5
+SCAN_FRAMES = 8
+STAGES = ("stage_imu", "stage_frontend", "stage_ba", "stage_pool")
+# Phase 11, the mesh dry run (parallel/multihost.py): MESH_RANKS processes
+# share the card over gloo as a (data MESH_RANKS / MESH_MODEL, model
+# MESH_MODEL) grid, MESH_LANES lanes a data rank, at phase 4's EuRoC-width
+# configuration and world. The warm-up is MESH_WARMUP single steps (the JAX
+# dry run takes 2): after frame 4's keyframe the pool holds ~586 landmarks,
+# so both model ranks' 512-slot blocks hold valid slots and the argmin
+# reduction decides between them.
+MESH_RANKS, MESH_MODEL, MESH_LANES, MESH_WARMUP = 4, 2, 2, 5
+MESH_TIMEOUT_S = 420.0
+
 # kernels whose first profiler session in `device_ms` recorded no launch
 PROFILE_MISSES = []
 
@@ -366,6 +402,203 @@ def counted_extractions():
         yield n
     finally:
         orb.extract_batch = extract
+
+
+@contextlib.contextmanager
+def timed_stages():
+    """While the block runs, each of `models.vio`'s four stages waits for
+    the card before it returns and adds its host time to the yielded
+    `profiling.StageTimers` under its name without "stage_" (the staged
+    state machine calls the stages through the module, so they are timed
+    there too)."""
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.profiling import StageTimers
+
+    timers = StageTimers()
+    saved = {name: getattr(vio, name) for name in STAGES}
+
+    def timed(name, fn):
+        def run(state, *args, **kwargs):
+            # the state's tensors live on the card: the timer synchronizes
+            with timers.stage(name[len("stage_"):], result=state.win.R):
+                return fn(state, *args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(vio, name, timed(name, fn))
+    try:
+        yield timers
+    finally:
+        for name, fn in saved.items():
+            setattr(vio, name, fn)
+
+
+def stage_split(timers) -> dict:
+    """ms per call of each stage in `timers`, in the stages' order."""
+    return {name[len("stage_"):]: timers.total[name[len("stage_"):]] * 1e3
+            / timers.count[name[len("stage_"):]] for name in STAGES}
+
+
+def staged_checks(dev, consts, static, inputs, truth) -> dict:
+    """Phase 4b (see STAGED_TOL_P): the staged OK path against the fused
+    `ok_step` on the same frames, states and uniforms, with the per-stage
+    split of a frame and K1 and K2 once per staged frame; then `ok_scan`
+    over SCAN_FRAMES of them against the fused chain. Returns the phase's
+    numbers."""
+    import torch
+
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.testing import seeded_state
+    from pose_estimation_tpu_torch.utils.tree import tree_leaves
+
+    start = seeded_state(static, truth, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for i in range(WARMUP):
+        start, _ = vio.ok_step(start, *inputs[i], gen, consts, static)
+    frames = list(range(WARMUP, N_FRAMES))
+    us = [vio.draw_ransac_uniforms(gen, dev) for _ in frames]
+
+    torch.cuda.synchronize()
+    zero_counters()
+    per_frame = []
+    staged = start
+    with timed_stages() as timers:
+        t0 = time.perf_counter()
+        for u, i in zip(us, frames):
+            img_l, img_r, gyr, acc, mask = inputs[i]
+            before = counters()
+            staged, _ = vio.stage_imu(staged, gyr, acc, mask, consts, static)
+            staged, cur, tr = vio.stage_frontend(staged, img_l, img_r, u, consts, static)
+            staged, _, _ = vio.stage_ba(staged, tr.n_matches, consts, static)
+            staged = vio.stage_pool(staged, cur, tr, tr.n_matches, consts, static)
+            per_frame.append({k: v - before[k] for k, v in counters().items()})
+        torch.cuda.synchronize()
+        staged_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    staged_launches = counters()
+    split = stage_split(timers)
+    if any((n["fast_select"], n["sample_patches"], n["fast_score_nms"]) != (1, 1, 0)
+           for n in per_frame):
+        fail(f"staged path: launches per frame {per_frame} (K1 and K2 once, K3 never)")
+
+    zero_counters()
+    fused, chain = start, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u, i in zip(us, frames):
+        fused, _ = vio.ok_step(fused, *inputs[i], None, consts, static, ransac_u=u)
+        chain.append(fused)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    pairs = list(zip(tree_leaves(staged), tree_leaves(fused)))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    p_diff = float((staged.win.p - fused.win.p).abs().max())
+    float_diff = max(float((a.double() - b.double()).abs().max())
+                     for a, b in pairs if a.is_floating_point())
+    print(f"staged OK path ({len(frames)} frames of the kernel-path chain, each stage "
+          f"synchronized): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" ms per frame, sum {sum(split.values()):.2f}; {staged_ms:.2f} ms per staged "
+          f"frame against {fused_ms:.2f} fused; launches per staged frame "
+          f"{per_frame[0]}; staged state "
+          + ("bit-equal to the fused state" if bit_equal else
+             f"differs from the fused state: positions {p_diff:.3g} m, any float "
+             f"{float_diff:.3g}"))
+    if not bit_equal and not p_diff <= STAGED_TOL_P:
+        fail(f"staged path: positions {p_diff:.3g} m from the fused step's")
+    if not bit_equal:
+        print("  (the stages run the fused step's code: a difference means a kernel or "
+              "library call that is not deterministic run to run on the card)")
+
+    sel = frames[:SCAN_FRAMES]
+    stacked = [torch.stack([inputs[i][k] for i in sel]) for k in range(5)]
+    u_scan = torch.stack([torch.stack(u) for u in us[:SCAN_FRAMES]])
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan_state, outs = vio.ok_scan(start, *stacked, None, consts, static, ransac_u=u_scan)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
+    scan_launches = counters()
+    ref = chain[SCAN_FRAMES - 1]
+    scan_equal = (all(torch.equal(a, b) for a, b in zip(tree_leaves(scan_state),
+                                                         tree_leaves(ref)))
+                  and all(torch.equal(outs["p"][k], chain[k].win.p[-1])
+                          for k in range(SCAN_FRAMES)))
+    if not scan_equal or outs["p"].shape != (SCAN_FRAMES, 3):
+        fail(f"ok_scan over {SCAN_FRAMES} frames differs from {SCAN_FRAMES} ok_step calls")
+    if (scan_launches["fast_select"], scan_launches["sample_patches"]) != (SCAN_FRAMES,) * 2:
+        fail(f"ok_scan: launches {scan_launches} in {SCAN_FRAMES} frames")
+    print(f"ok_scan ({SCAN_FRAMES} chained frames): bit-equal to {SCAN_FRAMES} ok_step "
+          f"calls with the same uniforms; {scan_ms:.2f} ms per frame; tracked "
+          f"{outs['n_tracked'].tolist()}; launches {scan_launches}")
+    return {"frames": len(frames), "stage_ms": split, "stage_sum_ms": sum(split.values()),
+            "staged_ms_per_frame": staged_ms, "fused_ms_per_frame": fused_ms,
+            "bit_equal": bit_equal, "p_diff_m": p_diff, "launches": staged_launches,
+            "launches_per_frame": per_frame[0], "scan_ms_per_frame": scan_ms,
+            "scan_launches": scan_launches}
+
+
+def mesh_checks(dev) -> dict:
+    """Phase 11: the sharded pool match's packed reduction on the card
+    against the unsharded `match`, index for index (2 and 4 shards, ties
+    across the blocks' borders), then the multi-process dry run (see
+    MESH_RANKS). Returns the phase's numbers."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import matching
+    from pose_estimation_tpu_torch.parallel import multihost
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def desc(n):
+        return matching.pack_descriptors(torch.rand((n, 256), generator=gen, device=dev) < 0.5)
+
+    train, query = desc(1024), desc(256)
+    train[356] = train[612] = train[100]      # other blocks at 2 and at 4 shards
+    query[::3] = train[100]
+    train_mask = torch.rand(1024, generator=gen, device=dev) < 0.6
+    train_mask[[100, 356, 612]] = True
+    query_mask = torch.ones(256, dtype=torch.bool, device=dev)
+    ref = matching.match(query, train, query_mask, train_mask, 3.0, 40.0)
+    for shards in (2, 4):
+        keys = [matching.shard_nearest(query, train, train_mask, i, shards)
+                for i in range(shards)]
+        idx, d = matching.unpack_nearest(matching.reduce_nearest(keys), 1024)
+        got = matching.gate(idx, d, query_mask, 3.0, 40.0)
+        if not (torch.equal(idx, ref.index) and torch.equal(d, ref.dist)
+                and torch.equal(got.valid, ref.valid)):
+            fail(f"packed reduction over {shards} shards differs from the unsharded match "
+                 "on the card")
+    if not bool((ref.index[::3] == 100).all()):
+        fail("unsharded match: ties did not go to the lowest slot")
+    print("sharded pool match: the packed reduction over 2 and 4 shards equals the "
+          "unsharded match on the card, index for index (ties across the blocks' borders "
+          "to the lowest slot)")
+
+    t0 = time.perf_counter()
+    results = multihost.dryrun(
+        MESH_RANKS, model=MESH_MODEL, device="cuda", backend="gloo",
+        config=("synthetic_config", dict(width=752, height=480, levels=8, features=800)),
+        lanes=MESH_LANES, n_landmarks=1200, warmup=MESH_WARMUP, timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r in results:
+        if (r["launches"]["fast_select"], r["launches"]["sample_patches"]) != (1, 1):
+            fail(f"mesh rank {r['rank']}: launches {r['launches']} in its batched step")
+        if not all(min(b) > 0 for b in r["pool_blocks"]):
+            fail(f"mesh rank {r['rank']}: a model rank's block holds no valid slot "
+                 f"({r['pool_blocks']}): the reduction decides nothing")
+        print(f"mesh rank {r['rank']} (data {r['data_index']}, model {r['model_index']}, "
+              f"{r['backend']} on {r['device']}): lanes {r['lanes']}, tracked "
+              f"{r['n_tracked']}, BA iterations {r['ba_iters']}, valid slots per block "
+              f"{r['pool_blocks']}; step {r['step_ms']:.2f} ms; largest state difference "
+              f"from the single-process step {r['state_max_diff']:.3g}; launches "
+              f"{r['launches']}")
+    print(f"mesh dry run: {MESH_RANKS} ranks ({MESH_RANKS // MESH_MODEL} x {MESH_MODEL}) at "
+          f"752x480, {wall:.1f} s")
+    return {"ranks": MESH_RANKS, "model": MESH_MODEL, "wall_s": wall,
+            "step_ms": [r["step_ms"] for r in results],
+            "state_max_diff": max(r["state_max_diff"] for r in results),
+            "launches": {k: sum(r["launches"][k] for r in results)
+                         for k in results[0]["launches"]}}
 
 
 # The map-based front end, selected as the JAX package selects it: on the
@@ -1087,7 +1320,9 @@ def observed_replays(profile=False):
     `profile`, the device kernels the profiler saw in OK frames from
     ENTRY_PROFILE_FROM on until a keyframe and another frame were among
     them (those frames' ms are left out); and the host seconds of each PNG
-    decode. Yields the list of the objects built."""
+    decode. A staged state machine (`staged=True`) runs no `ok_step`: its
+    OK frames are recorded by `process`, with their launches and host ms
+    and no metrics. Yields the list of the objects built."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1146,9 +1381,13 @@ def observed_replays(profile=False):
 
         def process(self, img_l, img_r, ts):
             ok = self.state == slam_mod.State.OK
-            n = len(frames)
+            n, count, before = len(frames), self._frame_count, counters()
             t0 = time.perf_counter()
             out = super().process(img_l, img_r, ts)
+            if ok and self.staged and self._frame_count > count:
+                frames.append({"launches": {k: v - before[k] for k, v in counters().items()},
+                               "metrics": None, "device_kernels": None,
+                               "full_ba_iters": None})
             if ok and len(frames) > n and frames[-1]["device_kernels"] is None:
                 torch.cuda.synchronize()
                 frames[-1]["ms"] = (time.perf_counter() - t0) * 1e3
@@ -1229,13 +1468,19 @@ def entry_point_checks(dev) -> dict:
     CLI's body with keyframe full BA (`load_config(..., full_ba_keyframes=
     True)` -> VisualInertialSLAM -> `io.euroc.run_euroc`), and the KITTI
     directory through `run_kitti.main` (K3 and K2), each under
-    `check_replay`'s gates. Returns the phase's numbers."""
+    `check_replay`'s gates. Then the EuRoC directory again through the
+    CLI's body, unprofiled, in turns: without a viewer, with a `LiveViewer`
+    attached (pushes only: the card's machine has no matplotlib to render
+    with), which must get one pose per OK frame, one keyframe commit per
+    keyframe and the landmarks every `viewer_landmark_every` frames, and
+    with `staged=True`, each stage timed. Returns the phase's numbers."""
     import tempfile
     from pathlib import Path
 
     from pose_estimation_tpu_torch import load_config, run_euroc, run_kitti
     from pose_estimation_tpu_torch import slam as slam_mod
     from pose_estimation_tpu_torch.io import euroc as euroc_io
+    from pose_estimation_tpu_torch.live_viewer import LiveViewer
     from pose_estimation_tpu_torch.io import png
     from pose_estimation_tpu_torch.testing import sim_config, write_euroc, write_kitti
 
@@ -1313,6 +1558,70 @@ def entry_point_checks(dev) -> dict:
         (slam,) = made
         out["kitti"] = check_replay("KITTI CLI", slam, kgt, kcsv, extractions[0], counters(),
                                     ("fast_score_nms", "sample_patches"))
+
+        class CountingViewer(LiveViewer):
+            """A LiveViewer that counts its pose, keyframe and landmark pushes."""
+
+            def __init__(self):
+                super().__init__(out_path=None, port=None, window_size=cfg.window_size)
+                self.pushes = {"pose": 0, "keyframe": 0, "landmark": 0}
+
+            def push_pose(self, R, p):
+                self.pushes["pose"] += 1
+                super().push_pose(R, p)
+
+            def push_keyframe(self):
+                self.pushes["keyframe"] += 1
+                super().push_keyframe()
+
+            def push_landmark(self, points, valid=None):
+                self.pushes["landmark"] += 1
+                super().push_landmark(points, valid)
+
+        cfg = load_config(e_yml, dataset="euroc")
+        for key, label in (("euroc_plain", "EuRoC, no viewer"), ("euroc_viewer", "EuRoC, viewer"),
+                           ("euroc_staged", "EuRoC, staged")):
+            csv = tmp / f"states_{key}.csv"
+            viewer = CountingViewer() if key == "euroc_viewer" else None
+            zero_counters()
+            with counted_extractions() as extractions, observed_replays() as made, \
+                    (timed_stages() if key == "euroc_staged" else contextlib.nullcontext()) \
+                    as timers:
+                slam = slam_mod.VisualInertialSLAM(cfg, device=dev,
+                                                   staged=key == "euroc_staged")
+                if viewer is not None:
+                    slam.set_viewer(viewer)
+                euroc_io.run_euroc(slam, euroc_io.EurocDataset(str(mav0)),
+                                   speed_up=cfg.speed_up)
+                slam.save_results(str(csv))
+            r = check_replay(label, slam, gt, csv, extractions[0], counters(),
+                             ("fast_select", "sample_patches"))
+            frames = slam.observed["frames"]
+            if viewer is not None:
+                want = {"pose": len(frames), "landmark": slam._frame_count
+                        // slam.viewer_landmark_every,
+                        "keyframe": sum(bool(f["metrics"]["is_keyframe"]) for f in frames)}
+                pos, raw, pose, lms, _ = viewer._snapshot()
+                if viewer.pushes != want or slam._frame_count != len(frames) \
+                        or not np.isfinite(pos).all() or len(pos) < cfg.window_size \
+                        or pose is None:
+                    fail(f"{label}: pushes {viewer.pushes}, expected {want} "
+                         f"({slam._frame_count} OK frames; {len(pos)} positions)")
+                r["pushes"] = viewer.pushes
+                print(f"  {label}: pushes {viewer.pushes} over {len(frames)} OK frames, as "
+                      f"expected; {r['ms_per_ok_frame']:.2f} ms per OK frame against "
+                      f"{out['euroc_plain']['ms_per_ok_frame']:.2f} without a viewer")
+            if timers is not None:
+                r["stage_ms"] = stage_split(timers)
+                if any((f["launches"]["fast_select"], f["launches"]["sample_patches"])
+                       != (1, 1) for f in frames):
+                    fail(f"{label}: launches per OK frame {[f['launches'] for f in frames]}")
+                print(f"  {label}: per OK frame, each stage synchronized: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in r["stage_ms"].items())
+                      + f" ms, sum {sum(r['stage_ms'].values()):.2f}, against "
+                      f"{r['ms_per_ok_frame']:.2f} ms per staged OK frame and "
+                      f"{out['euroc_plain']['ms_per_ok_frame']:.2f} fused")
+            out[key] = r
     return out
 
 
@@ -1453,6 +1762,9 @@ def main() -> None:
           f"the kernel path's {ms_frame:.2f}")
     if 2 * map_held < len(MAP_SEEDS):
         fail(f"map front end: only {map_held} of {len(MAP_SEEDS)} chains hold the bound")
+
+    # ---- phase 4b: the staged OK path and ok_scan on the kernel path's chain
+    staged = staged_checks(dev, consts, static, inputs, truth)
 
     # ---- phase 5: the kernel path against the CPU twin path on a small
     # input. The CPU path is the one tests/test_torch_vio.py holds to the
@@ -1638,6 +1950,9 @@ def main() -> None:
     entry = entry_point_checks(dev)
     print(f"entry points: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 11: the (data x model) mesh over processes sharing the card
+    mesh = mesh_checks(dev)
+
     loaded = sorted(
         k for k, v in sys.modules.items() if v is not None
         and (k in ("jax", "pose_estimation_tpu")
@@ -1647,14 +1962,25 @@ def main() -> None:
 
     # K4 alone has a library time: one conv2d computes its maps. No single
     # PyTorch call computes what K1, K2, K3 or K5 computes. Launches are
-    # those of the main path's run: the EuRoC-width chain on the kernel
-    # path (K1, K2), the KITTI-width state machine (K3), the map front
-    # end's chain (K4), the probe's sweep (K5).
+    # those of the paths' runs, each counted from zero: the main path (the
+    # EuRoC-width chain on the kernel path for K1 and K2, the KITTI-width
+    # state machine for K3, the map front end's chain for K4, the probe's
+    # sweep for K5), then the paths that run K1, K2 or K3 beside it: the
+    # staged frames, ok_scan, the unprofiled EuRoC replays without and
+    # with the viewer and staged, and the mesh dry run's ranks.
     main_launches = {"fast_select": launches["fast_select"],
                      "sample_patches": launches["sample_patches"],
                      "fast_score_nms": kitti_launches["fast_score_nms"],
                      "moment_maps": map_launches["moment_maps"],
                      "stream_probe": k["stream_probe"]["launches"]}
+    by_path = {name: {"main": n} for name, n in main_launches.items()}
+    for path, counts in (("staged", staged["launches"]), ("ok_scan", staged["scan_launches"]),
+                         *((key, entry[key]["launches"]) for key in
+                           ("euroc_plain", "euroc_viewer", "euroc_staged")),
+                         ("mesh_dryrun", mesh["launches"])):
+        for name, n in counts.items():
+            if n and name in by_path:
+                by_path[name][path] = n
     sources = {"fast_select": ("fast_select.cu", "pose_estimation_tpu/ops/pallas_fast.py:160"),
                "sample_patches": ("sample_patches.cu",
                                   "pose_estimation_tpu/ops/pallas_sample.py:111"),
@@ -1664,7 +1990,8 @@ def main() -> None:
                "stream_probe": ("stream_probe.cu", "benchmarks/launch_overhead_exp.py:37")}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"pose_estimation_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": main_launches[name],
+         "replaces": replaces, "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name],
          "max_abs_err": k[name]["err"], "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
          "bound_ms": k[name]["bound"], "bound_by": k[name]["by"],
          "library_ms": k[name]["lib_ms"], "device_ms": k[name]["device_ms"],
@@ -1675,7 +2002,7 @@ def main() -> None:
         for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
         "kitti_ms_per_ok_frame": kitti_ms, "full_ba_ok_step_ms_per_frame": full_ms_frame,
-        "entry_points": entry,
+        "entry_points": entry, "staged": staged, "mesh": mesh,
         "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
                     "frames_per_s": batched_res["frames_per_s"],
                     "lane_p_err": batched_res["lane_p_err"],

@@ -230,3 +230,8 @@ class CameraModel:
     @property
     def cy(self):
         return float(self.P1[1, 2])
+
+    @property
+    def baseline(self):
+        """Rectified stereo baseline (meters, positive)."""
+        return float(-self.P2[0, 3] / self.P2[0, 0])

@@ -67,15 +67,18 @@ def internal_match(feats_l: orb.OrbFeatures, feats_r: orb.OrbFeatures, u,
 
 
 def external_track(cur: CurrentFeatures, pool: FeaturePool, u,
-                   match_ratio: float, min_match_dist: float) -> TrackResult:
+                   match_ratio: float, min_match_dist: float,
+                   shard: matching.PoolShard | None = None) -> TrackResult:
     """Circular matching cur-left <-> pool-left and cur-right <-> pool-right;
-    the left matches pass RANSAC against the pool's first-frame pixels."""
+    the left matches pass RANSAC against the pool's first-frame pixels.
+    `shard` splits the two Hamming tables' pool columns over a model
+    group."""
     ml = matching.match(cur.desc_l, pool.desc_l, cur.valid, pool.valid,
-                        match_ratio, min_match_dist)
+                        match_ratio, min_match_dist, shard)
     hist_px = pool.pixel[ml.index]
     left_ok = ransac.fundamental_ransac(cur.px_l, hist_px, ml.valid, u).inliers
     mr = matching.match(cur.desc_r, pool.desc_r, cur.valid, pool.valid,
-                        match_ratio, min_match_dist)
+                        match_ratio, min_match_dist, shard)
     matched = left_ok & mr.valid & (ml.index == mr.index)
     return TrackResult(matched=matched, slot=ml.index, n_matches=torch.sum(matched))
 

@@ -4,7 +4,11 @@ and the bootstrap steps before it (SfM frame, first OK frame).
 
 Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
 `init_vio_state`, `extract_rectified`, `front_end`, `_run_backend`,
-`pool_update`, `ok_step`, `sfm_step`, `bootstrap_frame`). The JAX
+`pool_update`, `ok_step`, `ok_scan`, the stages `stage_imu`,
+`stage_frontend`, `stage_ba` and `stage_pool`, `sfm_step`,
+`bootstrap_frame`). The frame step is the composition of the stages, so
+the fused step and the staged OK path of `slam.py` run one body of code.
+The JAX
 `lax.cond` branches run both sides and select per sequence with
 `torch.where`, as `lax.cond` does under `vmap`: BA is skipped without
 circular matches, keyframe full BA (where configured), the
@@ -233,16 +237,17 @@ def extract_rectified(img_l, img_r, consts: VIOConstants, static: VIOStatic):
             orb.OrbFeatures(*(f[0] for f in feats_r)))
 
 
-def match_features(feats_l, feats_r, pool, ransac_u, static: VIOStatic):
+def match_features(feats_l, feats_r, pool, ransac_u, static: VIOStatic, shard=None):
     """Stereo match -> temporal track of one sequence's extracted features.
-    `ransac_u` is the pair of [64, 8] RANSAC uniforms (stereo, temporal)."""
+    `ransac_u` is the pair of [64, 8] RANSAC uniforms (stereo, temporal);
+    `shard` splits the pool's Hamming tables over a model group."""
     with _span("ok_step.match"):
         cur = tracker.internal_match(
             feats_l, feats_r, ransac_u[0], static.cur_capacity,
             static.match_ratio, static.min_match_dist, static.max_vertical_dist,
         )
         tr = tracker.external_track(
-            cur, pool, ransac_u[1], static.match_ratio, static.min_match_dist
+            cur, pool, ransac_u[1], static.match_ratio, static.min_match_dist, shard
         )
     return cur, tr
 
@@ -349,13 +354,12 @@ def draw_ransac_uniforms(generator: torch.Generator, device):
             torch.rand(shape, generator=generator, device=device))
 
 
-def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
-               consts: VIOConstants, static: VIOStatic):
-    """The frame step after ORB extraction, for one sequence: IMU
-    preintegration, matching, BA, marginalization and the pool update, with
-    no host read, so it maps over sequences with `torch.func.vmap`.
-    `ransac_u` holds the (stereo, temporal) [64, 8] uniforms. Returns
-    (new_state, metrics), metrics as device tensors."""
+def stage_imu(state: VIOState, gyr, acc, imu_mask, consts: VIOConstants,
+              static: VIOStatic):
+    """The frame's first stage: the pool's observation window shifts (when
+    the last frame was a keyframe), the IMU chunk is integrated and
+    finalized, and its constraint pushed onto the window with the predicted
+    newest state. Returns (state, the constraint's dt)."""
     win, pool = state.win, state.pool
     with _span("ok_step.imu"):
         pool = pool_mod.shift_window(pool, win.is_keyframe)
@@ -363,30 +367,79 @@ def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
                                      state.ba, consts.imu)
         ic = pre.finalize(preint, state.bg, state.ba, consts.imu)
         win = win_mod.push_constraint(win, ic, consts.gravity)
-        p_pred = win.p[-1]
+    return state._replace(win=win, pool=pool, preint=preint), ic.dt
 
-    cur, tr = match_features(feats_l, feats_r, pool, ransac_u, static)
-    pool = pool_mod.record_observations(pool, tr.slot, tr.matched, cur.px_l)
 
-    state = state._replace(win=win, pool=pool, preint=preint)
+def stage_match(state: VIOState, feats_l, feats_r, ransac_u, static: VIOStatic,
+                shard=None):
+    """The front end after extraction: stereo match, temporal track against
+    the pool (its Hamming tables split over `shard`'s model group where
+    given, `ops/matching.py`), and the matches recorded as the newest
+    frame's observations. Returns (state, current features, track)."""
+    cur, tr = match_features(feats_l, feats_r, state.pool, ransac_u, static, shard)
+    pool = pool_mod.record_observations(state.pool, tr.slot, tr.matched, cur.px_l)
+    return state._replace(pool=pool), cur, tr
+
+
+def stage_frontend(state: VIOState, img_l, img_r, ransac_u, consts: VIOConstants,
+                   static: VIOStatic):
+    """ORB extraction of the stereo pair (K1 or K3, then K2 on the kernel
+    path), then `stage_match`. Returns (state, current features, track)."""
+    with _span("ok_step.extract"):
+        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+    return stage_match(state, feats_l, feats_r, ransac_u, static)
+
+
+def stage_ba(state: VIOState, tr_n_matches, consts: VIOConstants, static: VIOStatic):
+    """`_run_backend`: returns (state, ba_cost, ba_iters)."""
     with _span("ok_step.backend"):
-        state, ba_cost, ba_iters = _run_backend(state, tr.n_matches, consts, static)
-    win = state.win
-    kf = win.is_keyframe & (tr.n_matches > 0)
-    with _span("ok_step.pool"):
-        do_pool = kf | ~torch.any(state.pool.valid)
-        state = select(do_pool, pool_update(state, cur, tr, consts, static), state)
+        return _run_backend(state, tr_n_matches, consts, static)
 
-    metrics = {
+
+def stage_pool(state: VIOState, cur, tr, tr_n_matches, consts: VIOConstants,
+               static: VIOStatic) -> VIOState:
+    """The pool update, kept on a keyframe with matches or while the pool
+    is empty."""
+    with _span("ok_step.pool"):
+        kf = state.win.is_keyframe & (tr_n_matches > 0)
+        do_pool = kf | ~torch.any(state.pool.valid)
+        return select(do_pool, pool_update(state, cur, tr, consts, static), state)
+
+
+def frame_metrics(state: VIOState, cur, tr, ba_cost, ba_iters, imu_dt, p_pred) -> dict:
+    """A frame's counts and flags as device tensors: the metrics of the
+    staged OK path (JAX `slam.py:380-391`), which `track_step` extends with
+    the record and health-check bundle."""
+    return {
         "n_stereo": torch.sum(cur.valid),
         "n_tracked": tr.n_matches,
-        "is_keyframe": win.is_keyframe,
+        "is_keyframe": state.win.is_keyframe,
         "ba_cost": ba_cost,
         "ba_iters": ba_iters,
-        "need_reinit": win.need_reinit,
+        "need_reinit": state.win.need_reinit,
         "pool_size": torch.sum(state.pool.valid),
-        "imu_dt": ic.dt,
+        "imu_dt": imu_dt,
         "p_pred": p_pred,
+    }
+
+
+def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
+               consts: VIOConstants, static: VIOStatic, shard=None):
+    """The frame step after ORB extraction, for one sequence: the stages
+    `stage_imu`, `stage_match`, `stage_ba` and `stage_pool` in turn, with no
+    host read, so it maps over sequences with `torch.func.vmap`.
+    `ransac_u` holds the (stereo, temporal) [64, 8] uniforms; `shard`
+    splits the pool's Hamming tables over a model group
+    (`parallel/batched.py`). Returns (new_state, metrics), metrics as
+    device tensors."""
+    state, imu_dt = stage_imu(state, gyr, acc, imu_mask, consts, static)
+    p_pred = state.win.p[-1]
+    state, cur, tr = stage_match(state, feats_l, feats_r, ransac_u, static, shard)
+    state, ba_cost, ba_iters = stage_ba(state, tr.n_matches, consts, static)
+    state = stage_pool(state, cur, tr, tr.n_matches, consts, static)
+    win = state.win
+    metrics = frame_metrics(state, cur, tr, ba_cost, ba_iters, imu_dt, p_pred)
+    metrics.update({
         "rec_quat": lie.mat_to_quat(win.R[-1]),
         "rec_p": win.p[-1],
         "rec_v": win.v[-1],
@@ -394,7 +447,7 @@ def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
         "rec_ba": win.ics.ba_i[-1] + win.dba[-1],
         "rec_R": win.R[-1],
         "rec_ic": pre.ImuConstraint(*(a[-1] for a in win.ics)),
-    }
+    })
     return state, metrics
 
 
@@ -410,6 +463,24 @@ def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
     with _span("ok_step.extract"):
         feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
     return track_step(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts, static)
+
+
+def ok_scan(state: VIOState, imgs_l, imgs_r, gyrs, accs, imu_masks,
+            generator: torch.Generator, consts: VIOConstants, static: VIOStatic,
+            ransac_u=None):
+    """T steady-state frames of one sequence ([T, ...] inputs), `ok_step`
+    after `ok_step`. `ransac_u` [T, 2, 64, 8] overrides the uniforms drawn
+    from `generator`. Returns (state, outputs): the newest R, p, v and the
+    n_tracked, is_keyframe and need_reinit of each frame, stacked [T, ...]."""
+    outs = []
+    for t in range(imgs_l.shape[0]):
+        state, m = ok_step(state, imgs_l[t], imgs_r[t], gyrs[t], accs[t], imu_masks[t],
+                           generator, consts, static,
+                           ransac_u=None if ransac_u is None else ransac_u[t])
+        outs.append({"R": state.win.R[-1], "p": state.win.p[-1], "v": state.win.v[-1],
+                     "n_tracked": m["n_tracked"], "is_keyframe": m["is_keyframe"],
+                     "need_reinit": m["need_reinit"]})
+    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def draw_sfm_uniforms(generator: torch.Generator, device, solver: str = "dlt"):

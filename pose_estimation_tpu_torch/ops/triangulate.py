@@ -1,9 +1,11 @@
-"""Batched two-view DLT triangulation by the adjugate of A^T A.
+"""Batched two-view DLT triangulation by the adjugate of A^T A, and the
+closed form for a rectified pair.
 
-Counterpart of `pose_estimation_tpu/ops/triangulate.py:triangulate`: the
-null vector of the rank-3 4x4 normal matrix is the adjugate column with the
-largest diagonal entry (first one on ties). Near-degenerate pairs come out
-with wrong depth and are dropped by the callers' depth gates.
+Counterpart of `pose_estimation_tpu/ops/triangulate.py` (`triangulate`,
+`triangulate_rectified`). In `triangulate` the null vector of the rank-3
+4x4 normal matrix is the adjugate column with the largest diagonal entry
+(first one on ties). Near-degenerate pairs come out with wrong depth and
+are dropped by the callers' depth gates.
 """
 
 from __future__ import annotations
@@ -49,3 +51,14 @@ def triangulate(p1, p2, px1, px2) -> torch.Tensor:
     wcomp = x[:, 3]
     safe_w = torch.where(wcomp.abs() < 1e-12, 1e-12, wcomp)
     return x[:, :3] / safe_w[:, None]
+
+
+def triangulate_rectified(fx, cx, cy, fy, baseline, px_l, px_r) -> torch.Tensor:
+    """Closed form for a rectified pair with zero disparity offset (depth
+    from disparity): [N, 3] points in the left rectified camera frame."""
+    disp = px_l[:, 0] - px_r[:, 0]
+    safe_disp = torch.where(disp.abs() < 1e-6, 1e-6, disp)
+    z = fx * baseline / safe_disp
+    x = (px_l[:, 0] - cx) / fx * z
+    y = (px_l[:, 1] - cy) / fy * z
+    return torch.stack([x, y, z], dim=-1)

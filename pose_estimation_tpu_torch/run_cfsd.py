@@ -15,7 +15,7 @@ import argparse
 import sys
 import time
 
-from pose_estimation_tpu_torch.run_euroc import LIVE_VIEW_MISSING
+from pose_estimation_tpu_torch.run_euroc import LIVE_VIEW_HELP, check_live_view, start_live_view
 
 
 def _live_camera_loop(slam, cfg, args):
@@ -69,7 +69,7 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--out", default="states.csv")
     ap.add_argument("--live-view", nargs="?", const=8642, type=int,
                     default=None, metavar="PORT",
-                    help="not available in the port yet")
+                    help=LIVE_VIEW_HELP)
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--live-imu", action="store_true",
                     help="ingest IMU from a live OD4 session (io/od4.py) "
@@ -91,8 +91,7 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--max-frames", type=int, default=0,
                     help="live mode: stop after N frames (0 = until timeout)")
     args = ap.parse_args(argv)
-    if args.live_view is not None:
-        ap.error(LIVE_VIEW_MISSING)
+    check_live_view(ap, args.live_view)
 
     from pose_estimation_tpu_torch import load_config
     from pose_estimation_tpu_torch.io.cfsd import CfsdRecording, run_cfsd
@@ -103,6 +102,7 @@ def main(argv=None, device="cuda"):
         ap.error("--recording-dir is required unless --live-camera is given")
     rec = CfsdRecording(args.recording_dir) if args.recording_dir else None
     slam = VisualInertialSLAM(cfg, verbose=args.verbose, device=device)
+    viewer = start_live_view(slam, args.live_view, cfg.window_size)
 
     session = None
     if args.live_imu:
@@ -123,6 +123,8 @@ def main(argv=None, device="cuda"):
     finally:
         if session is not None:
             session.stop()
+        if viewer is not None:
+            viewer.stop()
     wall = time.time() - t0
     print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} FPS)")
     slam.save_results(args.out)

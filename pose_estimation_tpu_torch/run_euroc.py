@@ -14,8 +14,31 @@ import argparse
 import sys
 import time
 
-LIVE_VIEW_MISSING = ("--live-view needs the live viewer (live_viewer.py), which the port "
-                     "does not have yet (ROADMAP queue A, the A9 leftovers)")
+LIVE_VIEW_HELP = ("serve the live raw-vs-optimized 3-D view on http://localhost:PORT "
+                  "(also writes live_view.png; needs matplotlib)")
+
+
+def check_live_view(ap, port) -> None:
+    """Refuse --live-view without matplotlib: the viewer's render thread
+    swallows every error, so it would serve a page with no image."""
+    if port is None:
+        return
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        ap.error("--live-view renders with matplotlib, which cannot be imported here")
+
+
+def start_live_view(slam, port, window_size):
+    """A started LiveViewer attached to `slam` (None without --live-view)."""
+    if port is None:
+        return None
+    from pose_estimation_tpu_torch.live_viewer import LiveViewer
+
+    viewer = LiveViewer(port=port, window_size=window_size).start()
+    slam.set_viewer(viewer)
+    print(f"live view: http://localhost:{viewer.port}/")
+    return viewer
 
 
 def main(argv=None, device="cuda"):
@@ -29,11 +52,10 @@ def main(argv=None, device="cuda"):
                     help="evaluate ATE RMSE against ground truth")
     ap.add_argument("--live-view", nargs="?", const=8642, type=int,
                     default=None, metavar="PORT",
-                    help="not available in the port yet")
+                    help=LIVE_VIEW_HELP)
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.live_view is not None:
-        ap.error(LIVE_VIEW_MISSING)
+    check_live_view(ap, args.live_view)
 
     from pose_estimation_tpu_torch import load_config
     from pose_estimation_tpu_torch.io.euroc import EurocDataset, run_euroc
@@ -43,11 +65,14 @@ def main(argv=None, device="cuda"):
     root = args.dataset_dir or cfg.dataset_path
     ds = EurocDataset(root)
     slam = VisualInertialSLAM(cfg, verbose=args.verbose, device=device)
+    viewer = start_live_view(slam, args.live_view, cfg.window_size)
 
     t0 = time.time()
     n = run_euroc(slam, ds, speed_up=cfg.speed_up, max_frames=args.max_frames)
     wall = time.time() - t0
     print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} FPS)")
+    if viewer is not None:
+        viewer.stop()
 
     slam.save_results(args.out)
     print(f"wrote {args.out}")

@@ -14,7 +14,7 @@ import argparse
 import sys
 import time
 
-from pose_estimation_tpu_torch.run_euroc import LIVE_VIEW_MISSING
+from pose_estimation_tpu_torch.run_euroc import LIVE_VIEW_HELP, check_live_view, start_live_view
 
 
 def main(argv=None, device="cuda"):
@@ -26,11 +26,10 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--out", default="states.csv")
     ap.add_argument("--live-view", nargs="?", const=8642, type=int,
                     default=None, metavar="PORT",
-                    help="not available in the port yet")
+                    help=LIVE_VIEW_HELP)
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.live_view is not None:
-        ap.error(LIVE_VIEW_MISSING)
+    check_live_view(ap, args.live_view)
 
     from pose_estimation_tpu_torch import load_config
     from pose_estimation_tpu_torch.io.kitti import KittiDataset, run_kitti
@@ -45,11 +44,14 @@ def main(argv=None, device="cuda"):
 
     ds = KittiDataset(args.dataset_dir or cfg.dataset_path)
     slam = VisualInertialSLAM(cfg, verbose=args.verbose, device=device)
+    viewer = start_live_view(slam, args.live_view, cfg.window_size)
 
     t0 = time.time()
     n = run_kitti(slam, ds, max_imu, max_img, rate)
     wall = time.time() - t0
     print(f"processed {n} frames in {wall:.1f}s ({n / wall:.1f} FPS)")
+    if viewer is not None:
+        viewer.stop()
     slam.save_results(args.out)
     print(f"wrote {args.out}")
     return 0

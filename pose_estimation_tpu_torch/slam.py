@@ -15,9 +15,14 @@ frame's metrics are also written as a JSON line (a host read per frame).
 host state a resumed run needs to continue identically, the random
 generator's state included.
 
-Not ported yet: the live viewer, the staged OK path and the
-keyframe-history refresh (`refresh_kf_hist`, off by default in the JAX
-package).
+`staged=True` runs the OK frame as the four stages of `models.vio`
+(`stage_imu`, `stage_frontend`, `stage_ba`, `stage_pool`), which a caller
+can time one by one; the fused `ok_step` is the same code in one call.
+`set_viewer` attaches a live viewer (`live_viewer.LiveViewer`), fed after
+every OK frame (host reads of the window, and of the pool every
+`viewer_landmark_every` frames). `refresh_kf_hist` (off by default, as in
+the JAX package) re-snapshots the keyframe history's entries still in the
+window at each health check.
 """
 
 from __future__ import annotations
@@ -87,9 +92,12 @@ class VisualInertialSLAM:
     def __init__(self, cfg: VIOConfig, verbose: bool = False, seed: int = 0,
                  reinit_on_bias_corruption: bool = True, reinit_check_every: int = 8,
                  refine_sigmas: tuple[float, float] = (2.0, 2.0), device="cuda",
-                 metrics_jsonl: str | None = None):
+                 metrics_jsonl: str | None = None, staged: bool = False):
         self.cfg = cfg
         self.verbose = verbose
+        # the OK frame as four calls (stage by stage timing) instead of the
+        # fused ok_step; both run the same stages
+        self.staged = staged
         self._metrics_sink = open(metrics_jsonl, "w") if metrics_jsonl else None
         self.device = (require_cuda() if torch.device(device).type == "cuda"
                        else torch.device(device))
@@ -111,6 +119,14 @@ class VisualInertialSLAM:
         self.max_refine_dba = 3.0         # m/s^2
         self._kf_hist: list[tuple] = []
         self._kfs_since_refine = 0
+        # whether the newest processed frame was a keyframe (it then sits at
+        # window slot -1 until the next frame shifts it to -2): the slot
+        # mapping of _refresh_kf_hist
+        self._last_was_kf = False
+        # re-snapshot the history's in-window entries from the current
+        # window at each health check; off by default (the JAX package's
+        # measurements found the refreshed chains no better)
+        self.refresh_kf_hist = False
         self.reinit_patience = 1
         self._corrupt_streak = 0
         # warm-first bias-corruption recovery, escalating to the cold reinit
@@ -129,6 +145,11 @@ class VisualInertialSLAM:
         self.state = State.SYNCHRONIZING
         self.vio = vio_mod.init_vio_state(self.static, dev)
         self._gen = torch.Generator(device=dev).manual_seed(seed)
+
+        # optional live viewer (`live_viewer.LiveViewer` or anything with its
+        # push API) and its landmark-cloud cadence
+        self._viewer = None
+        self.viewer_landmark_every = 10
 
         # host-side ingestion queues
         self._gyr = None
@@ -287,8 +308,12 @@ class VisualInertialSLAM:
                 if self.verbose:
                     print("[slam] warning: no IMU samples for frame; skipping")
                 return False
-            self.vio, metrics = vio_mod.ok_step(
-                self.vio, img_l, img_r, gyr, acc, mask, self._gen, self.consts, self.static)
+            if self.staged:
+                metrics = self._staged_step(img_l, img_r, gyr, acc, mask)
+            else:
+                self.vio, metrics = vio_mod.ok_step(
+                    self.vio, img_l, img_r, gyr, acc, mask, self._gen, self.consts,
+                    self.static)
             self._record(img_ts, metrics)
             if self.verbose:
                 print(f"[slam] ts={img_ts} stereo={int(metrics['n_stereo'])} "
@@ -302,9 +327,17 @@ class VisualInertialSLAM:
                     for k, v in metrics.items() if not k.startswith("rec_")}}) + "\n")
                 self._metrics_sink.flush()
             self._frame_count += 1
+            if self._viewer is not None:
+                self._push_viewer(metrics)
             # device scalars wait here and are read in one transfer every
             # reinit_check_every frames; the streaks still advance per frame
-            snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"], metrics["rec_ic"])
+            if "rec_R" in metrics:
+                snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"],
+                        metrics["rec_ic"])
+            else:
+                win = self.vio.win
+                snap = (win.R[-1], win.p[-1], win.v[-1],
+                        ImuConstraint(*(a[-1] for a in win.ics)))
             self._pending_health.append((
                 metrics["n_tracked"], metrics["need_reinit"], metrics["is_keyframe"], snap))
             if self._frame_count % self.reinit_check_every == 0:
@@ -312,6 +345,42 @@ class VisualInertialSLAM:
             return True
 
         return True  # LOST: relocalization is future work, as in the reference
+
+    def _staged_step(self, img_l, img_r, gyr, acc, mask) -> dict:
+        """The OK frame as four calls; returns the frame's metrics (without
+        the record bundle of the fused step)."""
+        c, s = self.consts, self.static
+        ransac_u = vio_mod.draw_ransac_uniforms(self._gen, self.device)
+        self.vio, imu_dt = vio_mod.stage_imu(self.vio, gyr, acc, mask, c, s)
+        p_pred = self.vio.win.p[-1]
+        self.vio, cur, tr = vio_mod.stage_frontend(self.vio, img_l, img_r, ransac_u, c, s)
+        self.vio, ba_cost, ba_iters = vio_mod.stage_ba(self.vio, tr.n_matches, c, s)
+        self.vio = vio_mod.stage_pool(self.vio, cur, tr, tr.n_matches, c, s)
+        return vio_mod.frame_metrics(self.vio, cur, tr, ba_cost, ba_iters, imu_dt, p_pred)
+
+    def set_viewer(self, viewer):
+        """Attach a live viewer (`live_viewer.LiveViewer`, or anything with
+        its push API)."""
+        self._viewer = viewer
+
+    def _push_viewer(self, metrics):
+        """Feed the viewer after an OK frame: the keyframe commit, the
+        window's positions, the predicted newest position, the pose, and
+        every `viewer_landmark_every` frames the landmark cloud (host
+        reads; the viewer is opt-in)."""
+        v = self._viewer
+        win = self.vio.win
+        w = win.p.shape[0] - 1
+        if bool(metrics["is_keyframe"]):
+            v.push_keyframe()
+        p_host = win.p.cpu().numpy()
+        for i in range(w):
+            v.push_position(p_host[1 + i], i)
+        v.push_raw_position(metrics["p_pred"].cpu().numpy(), w - 1)
+        v.push_pose(win.R[-1].cpu().numpy(), p_host[-1])
+        if self._frame_count % self.viewer_landmark_every == 0:
+            pool = self.vio.pool
+            v.push_landmark(pool.pos.cpu().numpy(), pool.valid.cpu().numpy())
 
     def _health_check(self, img_l, img_r) -> bool:
         pending, self._pending_health = self._pending_health, []
@@ -331,8 +400,11 @@ class VisualInertialSLAM:
             if is_kf and self.gravity_refine_window:
                 self._kf_hist.append(snap)
                 self._kfs_since_refine += 1
+            self._last_was_kf = bool(is_kf)
         if len(self._kf_hist) > self.gravity_refine_window:
             del self._kf_hist[: -self.gravity_refine_window]
+        if self.gravity_refine_window and self._kf_hist and self.refresh_kf_hist:
+            self._refresh_kf_hist()
         if lost:
             if self.verbose:
                 print("[slam] tracking lost -> re-bootstrapping")
@@ -467,6 +539,25 @@ class VisualInertialSLAM:
         return (torch.stack([h[0] for h in hist]), torch.stack([h[1] for h in hist]), ics,
                 ba_now)
 
+    def _refresh_kf_hist(self):
+        """Re-snapshot the keyframe-history entries still inside the
+        sliding window from the current window states (commit-time
+        snapshots go stale while motion BA refines the frames that stay in
+        the window). The constraints are measurements and stay as stored.
+        Reads the window's active count on the host."""
+        win = self.vio.win
+        length = win.R.shape[0]
+        # the newest entry sits at slot -1 until the next frame shifts the
+        # window (then -2)
+        off = 1 if self._last_was_kf else 2
+        n_act = int(win.n_act)
+        for m in range(1, len(self._kf_hist) + 1):
+            slot = length - off - (m - 1)
+            if slot < max(length - 1 - n_act, 0):
+                break   # left the active window: the entry is final
+            ic = self._kf_hist[-m][3]
+            self._kf_hist[-m] = (win.R[slot], win.p[slot], win.v[slot], ic)
+
     def _refine_gravity(self):
         """Routine refinement: re-solve gravity tilt and acc bias over the
         keyframe chain and apply small, physically plausible corrections to
@@ -582,6 +673,7 @@ class VisualInertialSLAM:
             "corrupt_streak": self._corrupt_streak,
             "warm_streak": self._warm_streak,
             "kfs_since_refine": self._kfs_since_refine,
+            "last_was_kf": self._last_was_kf,
             "kf_hist": [ser(h) for h in self._kf_hist],
             "pending_health": [[int(n), bool(r), bool(k), ser(snap)]
                                for n, r, k, snap in self._pending_health],
@@ -602,6 +694,7 @@ class VisualInertialSLAM:
         self._corrupt_streak = int(meta.get("corrupt_streak", 0))
         self._warm_streak = int(meta.get("warm_streak", 0))
         self._kfs_since_refine = int(meta.get("kfs_since_refine", 0))
+        self._last_was_kf = bool(meta.get("last_was_kf", False))
 
         win = self.vio.win
         template = (win.R[-1], win.p[-1], win.v[-1], ImuConstraint(*(a[-1] for a in win.ics)))
@@ -620,9 +713,10 @@ class VisualInertialSLAM:
     # ---- results
 
     def _record(self, img_ts: int, metrics: dict | None = None):
-        """Keep the frame's (quat, p, v, bg, ba) as device tensors; they are
-        read in save_results / trajectory."""
-        if metrics is not None:
+        """Keep the frame's (quat, p, v, bg, ba) as device tensors, from the
+        fused step's record bundle where given, else from the window; they
+        are read in save_results / trajectory."""
+        if metrics is not None and "rec_quat" in metrics:
             self._records.append((img_ts, metrics["rec_quat"], metrics["rec_p"],
                                   metrics["rec_v"], metrics["rec_bg"], metrics["rec_ba"]))
             return

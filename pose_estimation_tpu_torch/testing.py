@@ -1,6 +1,7 @@
 """Synthetic configurations and a numpy stereo-inertial world.
 
-`synthetic_config` is `pose_estimation_tpu/testing.py:synthetic_config`;
+`synthetic_config` and `tiny_config` are
+`pose_estimation_tpu/testing.py`'s;
 `sim_config`, `Trajectory` (families A and B), `set_family`,
 `StereoInertialSim` (renderer, IMU synthesizer and the replay `run` that
 feeds a `slam.VisualInertialSLAM`) and `sim_frames` are copies of
@@ -61,6 +62,14 @@ def synthetic_config(
     )
     base.update(overrides)
     return VIOConfig(**base)
+
+
+def tiny_config(**overrides) -> VIOConfig:
+    """Minimal shapes for the multi-process dry runs (96x64, 2 levels, 64
+    features, a 128-slot pool)."""
+    base = dict(max_keypoints=64, max_matches=32, pool_capacity=128, imu_chunk=8)
+    base.update(overrides)
+    return synthetic_config(width=96, height=64, levels=2, features=64, **base)
 
 
 def sim_config(width: int = 320, height: int = 240, **overrides) -> VIOConfig:

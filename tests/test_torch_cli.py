@@ -1,8 +1,8 @@
 """The port's replay entry points on the CPU: `run_euroc` and `run_kitti`
 over small simulated datasets written by `testing.write_euroc` and
 `testing.write_kitti` (320x240, 1 s at 10 Hz), the `states.csv` they write
-against the JAX package's `save_results` format, the `--live-view`
-refusal, and `profiling`.
+against the JAX package's `save_results` format, `--live-view` (served
+through the EuRoC CLI, refused without matplotlib), and `profiling`.
 
 The replays run with `yaml` and `cv2` made unimportable: the port reads
 its configuration and its PNG frames without PyYAML or OpenCV, which the
@@ -100,13 +100,59 @@ def test_run_kitti_cli_reaches_ok(tmp_path, captured, capsys):
 
 
 @pytest.mark.parametrize("cli", [run_euroc, run_kitti])
-def test_live_view_is_refused(cli, tmp_path, capsys):
-    """The live viewer is not ported yet: `--live-view` fails with an error
-    naming the roadmap item, before anything is read."""
+def test_live_view_is_refused(cli, tmp_path, capsys, monkeypatch):
+    """Without matplotlib (made unimportable here; the GPU machine has
+    none) `--live-view` fails with an error naming it, before anything is
+    read: the viewer's render thread would swallow the ImportError and
+    serve a page with no image."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     with pytest.raises(SystemExit) as exc:
         cli.main(["--config", str(tmp_path / "missing.yml"), "--live-view"], device="cpu")
     assert exc.value.code == 2
-    assert "A9" in capsys.readouterr().err
+    assert "matplotlib" in capsys.readouterr().err
+
+
+def test_live_view_runs_through_the_cli(tmp_path, captured, capsys, monkeypatch):
+    """`run_euroc --live-view 0` (any free port) over the 1-s EuRoC replay:
+    the viewer is attached, serves its page, gets one pose a frame from the
+    state machine, renders `live_view.png` in the working directory, and is
+    stopped when the replay ends."""
+    import urllib.request
+
+    from pose_estimation_tpu_torch import live_viewer
+
+    pytest.importorskip("matplotlib")
+    made = []
+
+    class Counted(live_viewer.LiveViewer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.poses = 0
+            made.append(self)
+
+        def push_pose(self, R, p):
+            self.poses += 1
+            super().push_pose(R, p)
+
+        def stop(self):
+            page = urllib.request.urlopen(f"http://127.0.0.1:{self.port}/", timeout=10).read()
+            assert b"view.png" in page
+            super().stop()
+
+    monkeypatch.setattr(live_viewer, "LiveViewer", Counted)
+    monkeypatch.chdir(tmp_path)
+    cfg = testing.sim_config(keyframe_rotation=0.1, keyframe_translation=0.15)
+    cpath, _, _ = testing.write_euroc(tmp_path / "euroc", cfg, DURATION)
+    assert run_euroc.main(["--config", str(cpath), "--out", str(tmp_path / "s.csv"),
+                           "--live-view", "0"], device="cpu") == 0
+    (slam,), (viewer,) = captured, made
+    assert slam._viewer is viewer and viewer.w == cfg.window_size
+    assert f"live view: http://localhost:{viewer.port}/" in capsys.readouterr().out
+    assert viewer.poses == slam._frame_count > 0
+    pos, raw, pose, _, _ = viewer._snapshot()
+    assert len(pos) >= cfg.window_size and np.isfinite(pos).all() and pose is not None
+    assert viewer._stop.is_set() and viewer._server is None and viewer._renders > 0
+    assert (tmp_path / "live_view.png").stat().st_size > 1000
 
 
 def test_stage_timers():
