@@ -32,10 +32,21 @@ kernel counts set to 0 just before and read just after:
 - a small input through the kernel path and the CPU twin path, which must
   agree, and 16 chains at full pyramid depth (384x240, 8 levels) held to
   the JAX package's drift;
-- the host state machine (`slam.VisualInertialSLAM`) at KITTI width over a
-  6-s noisy simulation with the kitti profile: it must reach OK, launch K3
-  and K2 once and K1 never in every OK frame, keep the BA cost >= 0, the state
-  finite and the aligned error under 2 x distance + 1 m;
+- the captured CUDA graphs (`graphs.py`, phase 4c): K1 and K2 read out of
+  a graph replay against their twins on another frame's stack than the
+  capture's; phase 4's chain eager and graphed in turns, every frame's
+  metrics and the final state bit-equal, on the kernel path and on the
+  map front end with K4; the staged graphs, `ok_scan`'s replays and the
+  batched step of 8 lanes, each bit-equal to its eager run; each path's
+  launches as replays x the graph's; each graph's capture and instantiate
+  seconds, nodes and pool bytes, the eager PSD clip's cost and the busy
+  share of graphed frames;
+- the host state machine (`slam.VisualInertialSLAM`, its OK frames as
+  graphs) at KITTI width over a 6-s noisy simulation with the kitti
+  profile: it must reach OK, launch K3 and K2 equally and K1 never in
+  every OK frame, keep the BA cost >= 0, the state finite and the
+  aligned error under 2 x distance + 1 m, and equal, bit for bit, the same
+  run with `graphed=False`;
 - the accuracy protocol of `benchmarks/chip_accuracy.py` through the port
   (family A worlds 0-2 for 6 s, family B worlds 0-1 for 12 s; gates ATE
   < 4 % of path, |ba| < 1.5, |bg| < 0.01), its runs spread over worker
@@ -71,10 +82,15 @@ kernel counts set to 0 just before and read just after:
   PNGs whose rows cycle through the five filters (the C PNG unfilter held
   bit-equal to its numpy twin on every frame), replayed through
   `run_euroc.main` (K1 and K2 once per extraction), through the CLI's body
-  with keyframe full BA, and through `run_kitti.main` (K3 and K2): each
-  must reach OK, stay finite and under 2 x distance + 1 m, and write the
-  JAX package's `states.csv` format; the profiler counts a keyframe's and
-  another frame's kernels.
+  with keyframe full BA, and through `run_kitti.main` (K3 and K2), each
+  graphed, and each dataset again through the CLI's body with
+  `graphed=False`: each must reach OK, stay finite and under 2 x distance
+  + 1 m, and write the JAX package's `states.csv` format, and the eager
+  file must equal the graphed one; the profiler counts an eager
+  keyframe's and another frame's kernels. Each replay prints its first OK
+  frame's ms (a graphed run's warm-up and captures) and its later frames'
+  ms split by the host work each ran beside the step (health check,
+  gravity refinement, recovery, overflow IMU chunks).
 
 - the staged OK path: frames 6-15 of the kernel path's chain through the
   four stages of `models.vio` (each timed to a synchronize: the per-stage
@@ -271,6 +287,9 @@ STATES_CSV_HEADER = "timestamp,qw,qx,qy,qz,px,py,pz,vx,vy,vz,bgx,bgy,bgz,bax,bay
 STAGED_TOL_P = 1e-5
 SCAN_FRAMES = 8
 STAGES = ("stage_imu", "stage_frontend", "stage_ba", "stage_pool")
+# the staged frame's captured graphs (graphs.FrameGraphs.staged_step) by stage
+GRAPH_STAGES = {"imu": "imu", "frontend": "frontend", "ba.head": "ba", "ba.tail": "ba",
+                "pool": "pool"}
 # Phase 11, the mesh dry run (parallel/multihost.py): MESH_RANKS processes
 # share the card over gloo as a (data MESH_RANKS / MESH_MODEL, model
 # MESH_MODEL) grid, MESH_LANES lanes a data rank, at phase 4's EuRoC-width
@@ -307,6 +326,34 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_activity(prof) -> dict:
+    """What `torch.profiler` saw on the card: `events`, its kernels, copies
+    and sets; `busy_ms`, the union of their intervals (overlaps counted
+    once); `summed_ms`, their device times summed; `span_ms`, from the
+    first one's start to the last one's end. The `record_function` ranges
+    (`ok_step.*`), which kineto also lays on the device's timeline as
+    spans over the kernels they hold and the gaps between them, are left
+    out of these and summed apart as `annotation_ms`."""
+    on_card = [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+    def annotation(e):
+        return e.is_user_annotation or e.name.startswith("ok_step.")
+
+    work = sorted((e.time_range.start, e.time_range.end) for e in on_card if not annotation(e))
+    busy, lo, hi = 0.0, None, None
+    for a, b in work:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += 0.0 if hi is None else hi - lo
+    return {"events": len(work), "busy_ms": busy / 1e3,
+            "summed_ms": sum(b - a for a, b in work) / 1e3,
+            "span_ms": (max(b for _, b in work) - work[0][0]) / 1e3 if work else 0.0,
+            "annotation_ms": sum(e.device_time for e in on_card if annotation(e)) / 1e3}
+
+
 def bound(n_bytes: float, n_instr: float):
     """(least time in ms, "bytes" or "operations") for `n_bytes` of HBM
     traffic and `n_instr` float32 instructions."""
@@ -334,87 +381,125 @@ def wrappers() -> dict:
 
 
 def counters() -> dict:
-    """The kernels' launch counts."""
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """The kernels' launches run: each wrapper's count, less the launches
+    that CUDA graph captures recorded (a recording runs nothing), plus
+    those that graph replays ran (`graphs.recorded`, `graphs.replayed`)."""
+    from pose_estimation_tpu_torch import graphs
+
+    return {name: fn.launches - graphs.recorded.get(name, 0) + graphs.replayed.get(name, 0)
+            for name, fn in wrappers().items()}
 
 
 def zero_counters() -> None:
-    for fn in wrappers().values():
+    from pose_estimation_tpu_torch import graphs
+
+    for name, fn in wrappers().items():
         fn.launches = 0
+        graphs.recorded.pop(name, None)
+        graphs.replayed.pop(name, None)
 
 
 @contextlib.contextmanager
 def count_prior_clip():
-    """Count, over the block, how often `ba.marginalize_prior` clips its
-    Schur complement: torch.linalg.eigh is wrapped while marginalize_prior
-    runs, and the ratio of the smallest to the largest eigenvalue of each
-    call stays on the device until the block ends. The frame step computes
-    the marginalization on every frame and keeps it on a keyframe of a full
-    window only; on the other frames it passes the identity, and those
-    calls are not counted. Yields a dict that is then filled with the
+    """Count, over the block, how often `ba.psd_clip` clips a Schur
+    complement of the marginalization: torch.linalg.eigh is wrapped while
+    psd_clip runs (eagerly, between a graphed frame's two graphs, or in an
+    eager frame), and the ratio of the smallest to the largest eigenvalue
+    of each matrix stays on the device until the block ends. The frame
+    step computes the marginalization on every frame and keeps it on a
+    keyframe of a full window only; on the other frames it passes the
+    identity, whose Schur complement is a multiple of the identity, and
+    those are not counted. Yields a dict that is then filled with the
     marginalizations, those with a negative eigenvalue (where the clip
     fires) and the most negative ratio."""
     import torch
 
     from pose_estimation_tpu_torch.backend import ba as ba_mod
 
-    marg, eigh = ba_mod.marginalize_prior, torch.linalg.eigh
+    clip, eigh = ba_mod.psd_clip, torch.linalg.eigh
     ratios, kept, stats = [], [], {}
 
     def recording_eigh(a, *args, **kwargs):
         evals, evecs = eigh(a, *args, **kwargs)
-        ratios.append(evals[0] / torch.clamp(evals[-1].abs(), min=1e-300))
+        ratios.append((evals[..., 0] / torch.clamp(evals[..., -1].abs(), min=1e-300))
+                      .reshape(-1))
         return evals, evecs
 
-    def counted_marg(win, h_final, *args, **kwargs):
-        kept.append((h_final != torch.eye(h_final.shape[0], dtype=h_final.dtype,
-                                          device=h_final.device)).any())
+    def counted_clip(schur):
+        eye = torch.eye(schur.shape[-1], dtype=schur.dtype, device=schur.device)
+        kept.append((schur != schur[..., :1, :1] * eye).flatten(-2).any(-1).reshape(-1))
         torch.linalg.eigh = recording_eigh
         try:
-            return marg(win, h_final, *args, **kwargs)
+            return clip(schur)
         finally:
             torch.linalg.eigh = eigh
 
-    ba_mod.marginalize_prior = counted_marg
+    ba_mod.psd_clip = counted_clip
     try:
         yield stats
     finally:
-        ba_mod.marginalize_prior = marg
-    r = ([x for x, k in zip(torch.stack(ratios).tolist(), torch.stack(kept).tolist()) if k]
+        ba_mod.psd_clip = clip
+    r = ([x for x, k in zip(torch.cat(ratios).tolist(), torch.cat(kept).tolist()) if k]
          if ratios else [])
     stats.update(calls=len(r), negative=sum(x < 0 for x in r), worst_ratio=min(r, default=0.0))
 
 
-@contextlib.contextmanager
-def counted_extractions():
-    """Count the calls of `orb.extract_batch` over the block (one per
-    stereo pair extracted); yields a one-element list holding the count."""
-    from pose_estimation_tpu_torch.ops import orb
-
-    n, extract = [0], orb.extract_batch
-
-    def counted(*args, **kwargs):
-        n[0] += 1
-        return extract(*args, **kwargs)
-
-    orb.extract_batch = counted
-    try:
-        yield n
-    finally:
-        orb.extract_batch = extract
+def extractions(launches) -> int:
+    """The stereo pairs that a run extracted, read from its launch counts
+    (`counters`): each extraction launches one detector, K1
+    (`fast_select`) or, at widths not divisible by 16, K3
+    (`fast_score_nms`)."""
+    return launches["fast_select"] + launches["fast_score_nms"]
 
 
 @contextlib.contextmanager
-def timed_stages():
-    """While the block runs, each of `models.vio`'s four stages waits for
-    the card before it returns and adds its host time to the yielded
-    `profiling.StageTimers` under its name without "stage_" (the staged
-    state machine calls the stages through the module, so they are timed
-    there too)."""
+def timed_stages(graphed=False):
+    """While the block runs, each stage of a staged OK frame waits for the
+    card before it returns and adds its host time to the yielded
+    `profiling.StageTimers` under its name without "stage_". Eager: each of
+    `models.vio`'s four stages (the staged state machine calls them through
+    the module). `graphed`: each replay of a staged graph
+    (`GRAPH_STAGES`; the BA stage's two graphs and the eager clip between
+    them add to one "ba" call), captures left out."""
+    import torch
+
+    from pose_estimation_tpu_torch import graphs
     from pose_estimation_tpu_torch.models import vio
     from pose_estimation_tpu_torch.profiling import StageTimers
 
     timers = StageTimers()
+    if graphed:
+        call, clip = graphs.CapturedStep.__call__, graphs._Graphs.clip
+
+        def add(stage, t0, counted):
+            torch.cuda.synchronize()
+            timers.total[stage] += time.perf_counter() - t0
+            timers.count[stage] += counted
+
+        def timed_call(self):
+            stage = GRAPH_STAGES.get(self.name)
+            if stage is None or self.graph is None:
+                return call(self)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(self)
+            add(stage, t0, self.name != "ba.tail")
+            return out
+
+        def timed_clip(self, name, schur):
+            if name != "ba":
+                return clip(self, name, schur)
+            t0 = time.perf_counter()
+            out = clip(self, name, schur)
+            add("ba", t0, False)
+            return out
+
+        graphs.CapturedStep.__call__, graphs._Graphs.clip = timed_call, timed_clip
+        try:
+            yield timers
+        finally:
+            graphs.CapturedStep.__call__, graphs._Graphs.clip = call, clip
+        return
     saved = {name: getattr(vio, name) for name in STAGES}
 
     def timed(name, fn):
@@ -537,6 +622,321 @@ def staged_checks(dev, consts, static, inputs, truth) -> dict:
             "scan_launches": scan_launches}
 
 
+def graph_line(name, g) -> str:
+    """One captured graph's numbers (`graphs.CapturedStep.stats`) as text."""
+    if "nodes" not in g:
+        return f"{name} (not captured: {g['replays']} calls)"
+    return (f"{name} {g['nodes']} nodes, capture {g['capture_s']:.3f} s, instantiate "
+            f"{g['instantiate_s']:.3f} s, pool {g['pool_bytes'] / 2**20:.1f} MiB, launches "
+            f"{g['launches']}, {g['replays']} replays")
+
+
+def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -> dict:
+    """Phase 4c, the captured graphs (`graphs.py`) against the eager steps
+    in this call: K1 and K2 read out of a graph replay against their twins
+    on another frame's stack than the capture's; the fused frame's chain
+    (phase 4's 16 frames, generator seed 0) eager and graphed in turns
+    (E G G E), every frame's metrics and the final state bit for bit, on
+    the kernel path and on the map front end with K4; the staged graphs
+    and `ok_scan`'s replays from the chain's state after the warm-up
+    against the fused eager frames; the batched step of BATCH lanes
+    graphed against eager over BATCH_FRAMES frames; each path's launches
+    as replays x the graph's launches; each graph's capture and
+    instantiate seconds, nodes and pool bytes; the eager PSD clip's cost;
+    the device's busy share in graphed frames by the profiler. Returns the
+    phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from pose_estimation_tpu_torch import graphs
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.ops import fast, orb, sample
+    from pose_estimation_tpu_torch.parallel import batched
+    from pose_estimation_tpu_torch.testing import seeded_state
+    from pose_estimation_tpu_torch.utils.tree import tree_leaves
+
+    def equal(a, b) -> bool:
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    out = {}
+    # K1 and K2 inside a graph: captured on frame 0's stack, replayed on
+    # frame 1's, held to the twins on frame 1's
+    ocfg, oc = static.orb, consts.orb
+    budgets = orb.level_budgets(ocfg)
+
+    def pair_stack(i):
+        imgs = torch.stack([inputs[i][0], inputs[i][1]]).to(torch.float32)
+        return orb.plane_stack(imgs, ocfg, oc)
+
+    stack0, bounds = pair_stack(0)
+    stack1, _ = pair_stack(1)
+    sel_args = (bounds, ocfg.th_hi, ocfg.th_lo, orb.EDGE, ocfg.k_per_cell)
+
+    def k1k2(st):
+        sel = fast.fast_select(st, *sel_args)
+        _, (gx, gy) = fast.plane_topk(sel[0], (sel[2], sel[3]),
+                                      min(budgets[0], sel[0].shape[1]))
+        xy_p = torch.stack([gx, gy], dim=-1)
+        xy = torch.cat([xy_p[lvl * 2:(lvl + 1) * 2, :kb] for lvl, kb in enumerate(budgets)],
+                       dim=1).contiguous()
+        return sel, xy, sample.sample_patches(st, bounds, xy, budgets, oc.pool_xy)
+
+    buf = stack0.clone()
+    k1k2(stack0.clone())
+    torch.cuda.synchronize()
+    kstep = graphs.CapturedStep("k1k2", k1k2, (buf,), dev)
+    kstep()
+    buf.copy_(stack1)
+    sel, xy, packed = kstep()
+    twin = fast.select_plain(stack1, *sel_args)
+    torch.cuda.synchronize()
+    ok = twin[0] > -5e8
+    if not (torch.equal(sel[0], twin[0]) and torch.equal(sel[1], twin[1])):
+        fail("K1 in a graph replay: scores or codes differ from the twin")
+    k1_err = max(float((sel[2] - twin[2])[ok].abs().max()),
+                 float((sel[3] - twin[3])[ok].abs().max()))
+    ref2 = sample.sample_stack_plain(stack1, bounds, xy, budgets, oc.pool_xy)
+    n_pool = oc.pool_xy.shape[0]
+    mom_err = float((packed[..., n_pool:] - ref2[..., n_pool:]).abs().max()
+                    / ref2[..., n_pool:].abs().max())
+    close = float(((packed[..., :n_pool] - ref2[..., :n_pool]).abs() <= K2_TOL_VAL)
+                  .float().mean())
+    if k1_err > K1_TOL_XY or mom_err > K2_TOL_MOM or close < K2_MIN_CLOSE:
+        fail(f"K1/K2 in a graph replay: subpixel {k1_err:.3g} px, moments {mom_err:.3g} of "
+             f"the largest, {close:.5f} of samples within {K2_TOL_VAL}")
+    print(f"K1 and K2 in a graph replay (captured on frame 0's stack, replayed on frame 1's "
+          f"[{tuple(stack1.shape)}]): K1 scores and codes bit-equal to the twin, subpixel "
+          f"within {k1_err:.3g} px; K2 moments within {mom_err:.3g} of the largest, "
+          f"{close:.5f} of samples within {K2_TOL_VAL}; graph "
+          + graph_line("k1k2", {"replays": kstep.replays, "launches": kstep.launches,
+                                **kstep.stats}))
+    out["kernels_in_graph"] = {"k1_xy_err": k1_err, "k2_mom_err": mom_err, "k2_close": close}
+    del buf, stack0, stack1, kstep
+
+    def chain(st, label, runner=None):
+        """N_FRAMES frames from the seeded window, the draws from seed 0:
+        eager `ok_step` or the runner's replays. Returns (state after the
+        warm-up, final state, each frame's metrics, ms a frame after the
+        warm-up, launches)."""
+        state = seeded_state(st, truth, dev)
+        if runner is not None:
+            runner.load_state(state)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        metrics, start = [], None
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        for i in range(N_FRAMES):
+            if i == WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start = graphs.snapshot(state if runner is None else runner.state)
+            if runner is None:
+                state, m = vio.ok_step(state, *inputs[i], gen, consts, st)
+            else:
+                u = vio.draw_ransac_uniforms(gen, dev)
+                m = graphs.snapshot(runner.ok_step(*inputs[i], u))
+                state = runner.state
+            metrics.append(m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
+        return start, graphs.snapshot(state), metrics, ms, counters()
+
+    runs, runner = {}, None
+    for turn, mode in enumerate(("eager", "graphed", "graphed", "eager")):
+        if mode == "graphed" and runner is None:
+            runner = graphs.FrameGraphs(seeded_state(static, truth, dev), consts, static, dev)
+        runs.setdefault(mode, []).append(chain(static, mode, runner if mode == "graphed"
+                                                else None))
+    (start, e_state, e_m, e_ms, _), e2 = runs["eager"][0], runs["eager"][1]
+    g1, g2 = runs["graphed"]
+    same = [equal((e_state, e_m), (r[1], r[2])) for r in (e2, g1, g2)]
+    print(f"graphed ok_step chain ({N_FRAMES} frames, kernel path, turns E G G E): "
+          f"{e_ms:.2f}, {g1[3]:.2f}, {g2[3]:.2f}, {e2[3]:.2f} ms/frame over frames "
+          f"{WARMUP}-{N_FRAMES - 1}; eager repeat, graphed runs "
+          f"{'bit-equal' if all(same) else 'DIFFER: ' + str(same)} to the first eager run "
+          f"(every frame's metrics and the final state); graphed launches {g1[4]} "
+          f"(frame 0 also warms up), {g2[4]}")
+    if not all(same):
+        fail(f"graphed ok_step chain differs from the eager one (eager repeat, graphed "
+             f"runs: {same})")
+    # K1 and K2 once a replayed frame, and once in the warm-up of a new runner
+    for r, n in ((g1, N_FRAMES + 1), (g2, N_FRAMES)):
+        if (r[4]["fast_select"], r[4]["sample_patches"]) != (n, n) \
+                or r[4]["fast_score_nms"] or r[4]["moment_maps"]:
+            fail(f"graphed ok_step chain: launches {r[4]}, expected K1 and K2 {n} times")
+    fused_stats = runner.stats()
+    out["chain"] = {"ms_per_frame": {"eager": [e_ms, e2[3]], "graphed": [g1[3], g2[3]]},
+                    "launches": g2[4], "graphs": fused_stats}
+    for name, g in fused_stats.items():
+        print("  graph " + graph_line(name, g))
+
+    # the map front end with K4
+    map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
+    _, me_state, me_m, me_ms, _ = chain(map_static, "eager")
+    map_runner = graphs.FrameGraphs(seeded_state(map_static, truth, dev), consts, map_static,
+                                    dev)
+    _, mg_state, mg_m, mg_ms, mg_l = chain(map_static, "graphed", map_runner)
+    map_same = equal((me_state, me_m), (mg_state, mg_m))
+    print(f"graphed ok_step chain, map front end (K1, K4): {me_ms:.2f} ms/frame eager, "
+          f"{mg_ms:.2f} graphed; " + ("bit-equal" if map_same else "DIFFERS")
+          + f"; graphed launches {mg_l}")
+    if not map_same:
+        fail("graphed ok_step chain on the map front end differs from the eager one")
+    if (mg_l["fast_select"], mg_l["moment_maps"]) != (N_FRAMES + 1,) * 2 \
+            or mg_l["sample_patches"] or mg_l["fast_score_nms"]:
+        fail(f"graphed map front end: launches {mg_l}, expected K1 and K4 {N_FRAMES + 1} "
+             "times (the replays and the warm-up)")
+    out["map_chain"] = {"ms_per_frame": {"eager": me_ms, "graphed": mg_ms}, "launches": mg_l,
+                        "graphs": map_runner.stats()}
+    del map_runner
+
+    # the staged graphs from the warm-up's state, against the fused eager
+    # frames with the same uniforms
+    frames_s = list(range(WARMUP, N_FRAMES))
+    ugen = torch.Generator(device=dev).manual_seed(1)
+    us = [vio.draw_ransac_uniforms(ugen, dev) for _ in frames_s]
+    ref, ref_m = start, []
+    for u, i in zip(us, frames_s):
+        ref, m = vio.ok_step(ref, *inputs[i], None, consts, static, ransac_u=u)
+        ref_m.append(m)
+    staged = graphs.FrameGraphs(start, consts, static, dev)
+    zero_counters()
+    with timed_stages(graphed=True) as timers:
+        st_m = [graphs.snapshot(staged.staged_step(*inputs[i], u)) for u, i in zip(us, frames_s)]
+    st_launches = counters()
+    split = {k: timers.total[k] * 1e3 / max(timers.count[k], 1) for k in ("imu", "frontend", "ba",
+                                                                   "pool")}
+    staged_same = equal(ref, staged.state) and all(equal(a, b) for a, b in zip(ref_m, st_m))
+    print(f"staged graphs ({len(frames_s)} frames from the chain's frame {WARMUP}, each stage "
+          f"synchronized, the first frame's captures left out): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" ms, sum {sum(split.values()):.2f}; state and metrics "
+          + ("bit-equal to the fused eager frames" if staged_same else "DIFFER")
+          + f"; launches {st_launches}")
+    if not staged_same:
+        fail("staged graphs differ from the fused eager frames")
+    if (st_launches["fast_select"], st_launches["sample_patches"]) != (len(frames_s) + 1,) * 2:
+        fail(f"staged graphs: launches {st_launches}, expected K1 and K2 {len(frames_s) + 1} "
+             "times (the replays and the warm-up)")
+    out["staged"] = {"stage_ms": split, "launches": st_launches, "graphs": staged.stats()}
+    del staged
+
+    # ok_scan as replays of the fused frame's graphs
+    sel_f = frames_s[:SCAN_FRAMES]
+    stacked = [torch.stack([inputs[i][k] for i in sel_f]) for k in range(5)]
+    e_scan_state, e_outs = vio.ok_scan(start, *stacked,
+                                       torch.Generator(device=dev).manual_seed(2), consts,
+                                       static)
+    runner.load_state(start)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_outs = runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
+    scan_launches = counters()
+    scan_same = equal(e_scan_state, runner.state) and equal(e_outs, g_outs)
+    print(f"ok_scan as {SCAN_FRAMES} replays of the fused graphs: "
+          + ("bit-equal to the eager ok_scan" if scan_same else "DIFFERS")
+          + f"; {scan_ms:.2f} ms a frame; launches {scan_launches}")
+    if not scan_same:
+        fail("graphed ok_scan differs from the eager ok_scan")
+    if (scan_launches["fast_select"], scan_launches["sample_patches"]) != (SCAN_FRAMES,) * 2:
+        fail(f"graphed ok_scan: launches {scan_launches} in {SCAN_FRAMES} frames")
+    out["ok_scan"] = {"ms_per_frame": scan_ms, "launches": scan_launches}
+
+    # the eager PSD clip between a frame's two graphs; the device's busy
+    # share of graphed frames under the profiler (the union of its kernels'
+    # intervals over the profiled frames' host time), and unprofiled: the
+    # frame's two graphs replayed back to back, each timed by CUDA events,
+    # over the chained frame's host time
+    schur = runner.steps["frame.head"].out.ba.schur
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vio.psd_clip(schur)
+        torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3 / 20
+    runner.load_state(start)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for i in frames_s[:4]:
+            runner.ok_step(*inputs[i], vio.draw_ransac_uniforms(gen, dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    act = device_activity(prof)
+    replay_ms = {name: cuda_ms(runner.steps[name].graph.replay, reps=10, warm=2)
+                 for name in ("frame.head", "frame.tail")}
+    graphs_ms = sum(replay_ms.values())
+    print(f"eager PSD clip between the graphs: {clip_ms:.3f} ms a frame (eigh of the "
+          f"{schur.shape[-1]}x{schur.shape[-1]} Schur complement in float64, to a "
+          f"synchronize); 4 graphed frames under the profiler: {wall_ms / 4:.2f} ms a frame, "
+          f"{act['events'] / 4:.0f} device events a frame, busy {act['busy_ms'] / 4:.3f} ms "
+          f"a frame (union of their intervals; summed {act['summed_ms'] / 4:.3f}, first to "
+          f"last {act['span_ms'] / 4:.3f}, record_function ranges {act['annotation_ms']:.3f} "
+          f"in all): busy share {act['busy_ms'] / wall_ms:.4f} of the profiled frames; "
+          f"unprofiled, frame.head {replay_ms['frame.head']:.3f} + frame.tail "
+          f"{replay_ms['frame.tail']:.3f} device ms a replay (CUDA events, back to back): "
+          f"{graphs_ms / g2[3]:.4f} of the chained graphed frame ({g2[3]:.2f} ms)")
+    out.update(clip_ms=clip_ms, profiled_ms_per_frame=wall_ms / 4,
+               device_events_per_frame=act["events"] / 4,
+               device_busy_ms_per_frame=act["busy_ms"] / 4,
+               device_summed_ms_per_frame=act["summed_ms"] / 4,
+               busy_share_profiled=act["busy_ms"] / wall_ms, graph_replay_ms=replay_ms,
+               graph_share_unprofiled=graphs_ms / g2[3])
+
+    # the batched step, B = BATCH: eager against graphed
+    lanes = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (frames[i][0], frames[i][1], gyrs[i], accs[i], mask))
+             for i in range(BATCH + BATCH_FRAMES)]
+    b_runs = {}
+    for mode in ("eager", "graphed"):
+        state = batched.stack_states([seeded_state(static, truth, dev, j)
+                                      for j in range(BATCH)])
+        gens = [torch.Generator(device=dev).manual_seed(100 + j) for j in range(BATCH)]
+        step = (batched.make_batched_step(consts, static) if mode == "eager"
+                else graphs.BatchedGraphs(state, consts, static, dev).step)
+        bg = getattr(step, "__self__", None)
+        ms_t, mets = [], []
+        zero_counters()
+        for i in range(BATCH_FRAMES):
+            u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
+            lane_in = [torch.stack(parts) for parts in zip(*(lanes[j + i]
+                                                             for j in range(BATCH)))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if bg is None:
+                state, m = step(state, *lane_in, u)
+            else:
+                m = graphs.snapshot(step(*lane_in, u))
+                state = bg.state
+            torch.cuda.synchronize()
+            ms_t.append((time.perf_counter() - t0) * 1e3)
+            mets.append(m)
+        b_runs[mode] = (graphs.snapshot(state), mets, float(np.mean(ms_t[2:])), counters(),
+                        bg.stats() if bg is not None else None)
+    (es, em, ems, _, _), (gs, gm, gms, gl, gstats) = b_runs["eager"], b_runs["graphed"]
+    b_same = equal((es, em), (gs, gm))
+    print(f"batched step, B = {BATCH}, {BATCH_FRAMES} frames: {ems:.2f} ms a step eager, "
+          f"{gms:.2f} graphed ({BATCH / gms * 1e3:.2f} frames/s), over frames 2-"
+          f"{BATCH_FRAMES - 1}; " + ("bit-equal" if b_same else "DIFFERS")
+          + f"; graphed launches {gl}; graphs "
+          + "; ".join(graph_line(n, g) for n, g in gstats.items()))
+    if not b_same:
+        fail("graphed batched step differs from the eager one")
+    if (gl["fast_select"], gl["sample_patches"]) != (BATCH_FRAMES + 1,) * 2:
+        fail(f"graphed batched step: launches {gl}, expected K1 and K2 {BATCH_FRAMES + 1} "
+             "times (one extraction a step, and the warm-up)")
+    out["batched"] = {"ms_per_step": {"eager": ems, "graphed": gms}, "launches": gl,
+                      "graphs": gstats}
+    return out
+
+
 def mesh_checks(dev) -> dict:
     """Phase 11: the sharded pool match's packed reduction on the card
     against the unsharded `match`, index for index (2 and 4 shards, ties
@@ -606,51 +1006,127 @@ def mesh_checks(dev) -> dict:
 MAP_FRONT = dict(sample_backend="xla", moments_backend="pallas")
 
 
-def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=None):
-    """Replay `world` through the port's VisualInertialSLAM(seed=seed) on
-    the card, with `orb_replace` applied to its static ORB configuration.
-    Returns (slam, ground truth, per-OK-frame records, extractions). Each
-    OK frame's record holds its host ms (to a synchronize), the kernel
-    launches it made and its metrics (device tensors, read after the run);
-    `extractions` counts the calls of `orb.extract_batch`."""
-    import torch
+# the host work that the state machine runs beside an OK frame's step, by
+# the method that runs it, and the mark that a frame's record gets for it
+FRAME_EVENTS = {"_health_check": "H", "_refine_gravity": "G", "_warm_recover": "W",
+                "_reinitialize": "R", "_relocalize": "L", "_integrate": "I"}
 
-    from pose_estimation_tpu_torch.models import vio
-    from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
+
+def observe_ok_frames(slam, frames, profile=None, on_frame=None):
+    """Record each OK frame that `slam` processes into `frames`: the host ms
+    of its `process` call (to a synchronize), the kernel launches it ran
+    (graph replays included; the first graphed frame also warms its graphs
+    up) and the stereo pairs they extracted, the marks (`FRAME_EVENTS`,
+    sorted) of the host work it ran beside the step, and its metrics
+    (snapshot copies, as `_record` keeps them). `profile(frames)`, where
+    given, says whether to run the frame under `torch.profiler`, whose
+    CUDA kernel count is then recorded as `device_kernels` and its ms left
+    out; `on_frame(record)` may add to each record."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from pose_estimation_tpu_torch.slam import State
+
+    process, record, last, ran = slam.process, slam._record, {}, set()
+
+    def observed_record(ts, metrics=None):
+        last["metrics"] = metrics
+        return record(ts, metrics)
+
+    def marked(mark, fn):
+        def run(*args, **kwargs):
+            ran.add(mark)
+            return fn(*args, **kwargs)
+        return run
+
+    def observed_process(img_l, img_r, ts):
+        ok, count = slam.state == State.OK, slam._frame_count
+        before = counters()
+        ran.clear()
+        wanted = bool(ok and profile is not None and profile(frames))
+        t0 = time.perf_counter()
+        if wanted:
+            with torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = process(img_l, img_r, ts)
+                torch.cuda.synchronize()
+            kernels = device_activity(prof)["events"]
+        else:
+            out = process(img_l, img_r, ts)
+            getattr(torch, slam.device.type).synchronize()
+            kernels = None
+        if ok and slam._frame_count > count:
+            launches = {k: v - before[k] for k, v in counters().items()}
+            frame = {"launches": launches, "extractions": extractions(launches),
+                     "events": "".join(sorted(ran)), "metrics": last.get("metrics"),
+                     "device_kernels": kernels}
+            if kernels is None:
+                frame["ms"] = (time.perf_counter() - t0) * 1e3
+            if on_frame is not None:
+                on_frame(frame)
+            frames.append(frame)
+        return out
+
+    for name, mark in FRAME_EVENTS.items():
+        setattr(slam, name, marked(mark, getattr(slam, name)))
+    slam.process, slam._record = observed_process, observed_record
+
+
+def frame_times(frames) -> dict:
+    """The host ms of observed OK frames (`observe_ok_frames`; profiled
+    frames left out): the first OK frame's (in a graphed run its graphs'
+    warm-up and captures), the mean and median of the later ones, and the
+    later ones grouped by their marks ("" = the step alone): per group the
+    frames, their mean and, for marked groups, each frame's index and
+    ms."""
+    later = [(i, f["ms"]) for i, f in enumerate(frames) if i > 0 and "ms" in f]
+    ms = [m for _, m in later]
+    groups = {}
+    for i, m in later:
+        groups.setdefault(frames[i]["events"], []).append((i, m))
+    return {"first_ms": frames[0].get("ms") if frames else None,
+            "mean_ms": float(np.mean(ms)) if ms else None,
+            "median_ms": float(np.median(ms)) if ms else None,
+            "by_events": {k: {"frames": len(v), "mean_ms": float(np.mean([m for _, m in v])),
+                              "sum_ms": float(np.sum([m for _, m in v])),
+                              **({"ms": [[i, m] for i, m in v]} if k else {})}
+                          for k, v in sorted(groups.items())}}
+
+
+def frame_times_line(t) -> str:
+    """`frame_times` in one line."""
+    def group(k, g):
+        name = k or "step alone"
+        each = ("" if not k else " [" + ", ".join(f"#{i} {m:.2f}" for i, m in g["ms"]) + "]")
+        return f"{name}: {g['frames']} frames, mean {g['mean_ms']:.2f}{each}"
+
+    first = "n/a" if t["first_ms"] is None else f"{t['first_ms']:.2f}"
+    if t["mean_ms"] is None:
+        return f"first OK frame {first} ms; no later frame timed"
+    return (f"first OK frame {first} ms; later frames mean {t['mean_ms']:.2f}, median "
+            f"{t['median_ms']:.2f}; by host work beside the step (H health check, G gravity "
+            f"refinement, W warm recovery, R reinit, L relocalization, I overflow IMU "
+            f"chunks): " + "; ".join(group(k, g) for k, g in t["by_events"].items()))
+
+
+def run_state_machine(cfg, world, duration, imu_seed, seed, dev, orb_replace=None,
+                      graphed=True):
+    """Replay `world` through the port's VisualInertialSLAM(seed=seed,
+    graphed=graphed) on the card, with `orb_replace` applied to its static
+    ORB configuration. Returns (slam, ground truth, per-OK-frame records
+    (`observe_ok_frames`), stereo pairs extracted)."""
+    from pose_estimation_tpu_torch.slam import VisualInertialSLAM
     from pose_estimation_tpu_torch.testing import PROTOCOL_IMU_NOISE
 
-    slam = VisualInertialSLAM(cfg, seed=seed, device=dev)
+    slam = VisualInertialSLAM(cfg, seed=seed, device=dev, graphed=graphed)
     if orb_replace:
         slam.static = dataclasses.replace(slam.static,
                                           orb=slam.static.orb._replace(**orb_replace))
     frames = []
-    step, process = vio.ok_step, slam.process
-
-    def counted_step(*args, **kwargs):
-        before = counters()
-        state, metrics = step(*args, **kwargs)
-        frames.append({"launches": {k: v - before[k] for k, v in counters().items()},
-                       "metrics": metrics})
-        return state, metrics
-
-    def timed_process(img_l, img_r, ts):
-        ok = slam.state == State.OK
-        t0 = time.perf_counter()
-        out = process(img_l, img_r, ts)
-        if ok:
-            getattr(torch, slam.device.type).synchronize()
-            if frames and "ms" not in frames[-1]:
-                frames[-1]["ms"] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    vio.ok_step = counted_step
-    slam.process = timed_process
-    try:
-        with counted_extractions() as extractions:
-            gt = world.run(slam, duration=duration, imu_noise=PROTOCOL_IMU_NOISE, seed=imu_seed)
-    finally:
-        vio.ok_step = step
-    return slam, gt, frames, extractions[0]
+    before = extractions(counters())
+    observe_ok_frames(slam, frames)
+    gt = world.run(slam, duration=duration, imu_noise=PROTOCOL_IMU_NOISE, seed=imu_seed)
+    return slam, gt, frames, extractions(counters()) - before
 
 
 def protocol_worker(job):
@@ -1167,27 +1643,25 @@ def batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth) -> dict
     torch.cuda.synchronize()
     zero_counters()
     t_start = time.perf_counter()
-    with counted_extractions() as extractions:
-        for i in range(BATCH_FRAMES):
-            if i == 2:
-                torch.cuda.synchronize()
-                t_warm = time.perf_counter()
-            u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
-            before = state
-            lane_in = [torch.stack(parts) for parts in zip(*(inputs[j + i] for j in range(BATCH)))]
-            state, m = step(state, *lane_in, u)
-            if i == 1:
-                held = (before, lane_in, u)
-            metrics.append(m)
-        torch.cuda.synchronize()
+    for i in range(BATCH_FRAMES):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+        u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
+        before = state
+        lane_in = [torch.stack(parts) for parts in zip(*(inputs[j + i] for j in range(BATCH)))]
+        state, m = step(state, *lane_in, u)
+        if i == 1:
+            held = (before, lane_in, u)
+        metrics.append(m)
+    torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = counters()
     ms_step = (t_end - t_warm) * 1e3 / (BATCH_FRAMES - 2)
     if (launches["fast_select"], launches["sample_patches"]) != (BATCH_FRAMES, BATCH_FRAMES) \
-            or launches["fast_score_nms"] or launches["moment_maps"] \
-            or extractions[0] != BATCH_FRAMES:
-        fail(f"batched step: {extractions[0]} extractions and launches {launches} in "
-             f"{BATCH_FRAMES} batched frames (one extraction, K1 and K2 once each, a frame)")
+            or launches["fast_score_nms"] or launches["moment_maps"]:
+        fail(f"batched step: launches {launches} in {BATCH_FRAMES} batched frames (one "
+             "extraction, K1 and K2 once each, a frame)")
     excess = np.full(BATCH, -math.inf)
     dist = np.zeros(BATCH)
     for i, m in enumerate(metrics):
@@ -1314,50 +1788,25 @@ def is_keyframe(metrics) -> bool:
 def observed_replays(profile=False):
     """While the block runs, every `slam.VisualInertialSLAM` the code builds
     (the CLIs' too) records its replay on `.observed`: the states it passed
-    through and the seconds to its first OK frame; per OK frame the host ms
-    of `process` (to a synchronize), the kernel launches and metrics of its
-    `ok_step` and the full-BA iterations (where configured); with
-    `profile`, the device kernels the profiler saw in OK frames from
+    through and the seconds to its first OK frame; per OK frame
+    `observe_ok_frames`' record, and the full-BA iterations of an eager
+    frame (where configured; a graphed frame's solve runs inside its graph);
+    with `profile`, the device kernels the profiler saw in OK frames from
     ENTRY_PROFILE_FROM on until a keyframe and another frame were among
     them (those frames' ms are left out); and the host seconds of each PNG
-    decode. A staged state machine (`staged=True`) runs no `ok_step`: its
-    OK frames are recorded by `process`, with their launches and host ms
-    and no metrics. Yields the list of the objects built."""
-    import torch
-    from torch.profiler import ProfilerActivity
-
+    decode. Yields the list of the objects built."""
     from pose_estimation_tpu_torch import slam as slam_mod
     from pose_estimation_tpu_torch.backend import full_ba as full_ba_mod
     from pose_estimation_tpu_torch.io import png
-    from pose_estimation_tpu_torch.models import vio
 
     made, decode_s, full_iters = [], [], []
-    base, step, read, solve = (slam_mod.VisualInertialSLAM, vio.ok_step, png.read_png,
-                               full_ba_mod.full_ba)
+    base, read, solve = slam_mod.VisualInertialSLAM, png.read_png, full_ba_mod.full_ba
     frames = []
 
-    def wanted() -> bool:
+    def wanted(frames) -> bool:
         seen = {is_keyframe(f["metrics"]) for f in frames if f["device_kernels"] is not None}
         return (profile and len(frames) >= ENTRY_PROFILE_FROM and len(seen) < 2
                 and len(frames) < ENTRY_PROFILE_FROM + ENTRY_PROFILED)
-
-    def counted_step(*args, **kwargs):
-        before = counters()
-        n_iters = len(full_iters)
-        if wanted():
-            with torch.profiler.profile(
-                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                out = step(*args, **kwargs)
-                torch.cuda.synchronize()
-            kernels = sum(e.device_type.name == "CUDA" and not e.name.startswith("ok_step.")
-                          for e in prof.events())
-        else:
-            out, kernels = step(*args, **kwargs), None
-        frames.append({"launches": {k: v - before[k] for k, v in counters().items()},
-                       "metrics": out[1], "device_kernels": kernels,
-                       "full_ba_iters": full_iters[n_iters] if len(full_iters) > n_iters
-                       else None})
-        return out
 
     def recorded_solve(*args, **kwargs):
         out = solve(*args, **kwargs)
@@ -1377,41 +1826,37 @@ def observed_replays(profile=False):
             frames.clear()
             self.observed = {"states": [self.state.name], "frames": frames,
                              "decode_s": decode_s}
+            self._full_iters = None
+            observe_ok_frames(self, frames, wanted,
+                              lambda f: f.update(full_ba_iters=self._full_iters))
             made.append(self)
 
         def process(self, img_l, img_r, ts):
-            ok = self.state == slam_mod.State.OK
-            n, count, before = len(frames), self._frame_count, counters()
-            t0 = time.perf_counter()
+            n_iters = len(full_iters)
             out = super().process(img_l, img_r, ts)
-            if ok and self.staged and self._frame_count > count:
-                frames.append({"launches": {k: v - before[k] for k, v in counters().items()},
-                               "metrics": None, "device_kernels": None,
-                               "full_ba_iters": None})
-            if ok and len(frames) > n and frames[-1]["device_kernels"] is None:
-                torch.cuda.synchronize()
-                frames[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            self._full_iters = (full_iters[-1] if not self.graphed
+                                and len(full_iters) > n_iters else None)
             if self.state.name != self.observed["states"][-1]:
                 self.observed["states"].append(self.state.name)
                 if self.state == slam_mod.State.OK:
                     self.observed["to_ok_s"] = time.perf_counter() - self.t_start
             return out
 
-    slam_mod.VisualInertialSLAM, vio.ok_step = Observed, counted_step
+    slam_mod.VisualInertialSLAM = Observed
     png.read_png, full_ba_mod.full_ba = timed_read, recorded_solve
     try:
         yield made
     finally:
-        slam_mod.VisualInertialSLAM, vio.ok_step = base, step
+        slam_mod.VisualInertialSLAM = base
         png.read_png, full_ba_mod.full_ba = read, solve
 
 
-def check_replay(label, slam, gt, states_csv, extractions, launches, path_kernels) -> dict:
+def check_replay(label, slam, gt, states_csv, launches, path_kernels) -> dict:
     """Phase 10's gates on one finished replay: it reached OK, its state is
     finite, every position lies within 2 x distance + 1 m of the truth,
     its states.csv has the JAX package's header and 17 columns a row, and
-    the kernels of its path launched once per extraction (the others
-    never). Returns the replay's numbers."""
+    the kernels of its path launched once per extraction, at least once an
+    OK frame (the others never). Returns the replay's numbers."""
     import torch
 
     from pose_estimation_tpu_torch.io.ate import ate_rmse
@@ -1437,26 +1882,58 @@ def check_replay(label, slam, gt, states_csv, extractions, launches, path_kernel
             or any(len(r) != 17 or not np.isfinite([float(v) for v in r]).all() for r in rows):
         fail(f"{label}: states.csv is not the JAX package's format (header {lines[0]!r}, "
              f"{len(rows)} rows)")
+    n_ext = extractions(launches)
     others = [k for k in launches if k not in path_kernels]
-    if any(launches[k] != extractions for k in path_kernels) or any(launches[k] for k in others):
-        fail(f"{label}: launches {launches} in {extractions} extractions ({path_kernels} "
-             "once each, the others never)")
+    if any(launches[k] != n_ext for k in path_kernels) or any(launches[k] for k in others) \
+            or n_ext < len(frames):
+        fail(f"{label}: launches {launches} in {len(frames)} OK frames ({path_kernels} once "
+             "an extraction, the others never)")
     ms = [f["ms"] for f in frames if "ms" in f]
+    times = frame_times(frames)
     ate = ate_rmse(slam.trajectory, gt)
     path = ate / e["ate_pct"] * 100.0
     out = {"ok_frames": len(frames), "states": obs["states"], "to_ok_s": obs["to_ok_s"],
-           "ms_per_ok_frame": float(np.mean(ms)), "ate_m": ate,
+           "ms_per_ok_frame": float(np.mean(ms)), "first_ok_frame_ms": times["first_ms"],
+           "ms_per_later_ok_frame": times["mean_ms"],
+           "median_ms_per_ok_frame": times["median_ms"], "frame_times": times, "ate_m": ate,
            "ate_pct": e["ate_pct"], "path_m": path, "launches": launches,
-           "extractions": extractions, "worst_err_m": float(e["err"].max())}
+           "extractions": n_ext, "worst_err_m": float(e["err"].max())}
     decode = obs["decode_s"]
     out["decode_ms_per_frame"] = 2e3 * float(np.mean(decode)) if decode else None
     print(f"{label}: states {' -> '.join(obs['states'])} ({obs['to_ok_s']:.1f} s to OK, "
           f"construction included); {len(frames)} OK frames, "
-          f"{out['ms_per_ok_frame']:.2f} ms per OK frame over {len(ms)}; PNG decode "
+          f"{out['ms_per_ok_frame']:.2f} ms per OK frame over {len(ms)}; "
+          + frame_times_line(times) + "; PNG decode "
           f"{out['decode_ms_per_frame']:.3f} ms a frame (2 images); ATE {ate:.4f} m, "
           f"{e['ate_pct']:.3f} % of the {path:.3f}-m path, worst aligned error "
-          f"{out['worst_err_m']:.3f} m; {extractions} extractions, launches {launches}")
+          f"{out['worst_err_m']:.3f} m; {n_ext} extractions, launches {launches}")
     return out
+
+
+def replay_cli_body(kind, yml, states_csv, dev, graphed, **overrides):
+    """Replay the dataset that the configuration `yml` names as the replay
+    CLI of `kind` ("euroc" or "kitti") does (`load_config` with
+    `overrides`, `VisualInertialSLAM`, the reader's loop, states.csv),
+    with `graphed` chosen: the CLIs' yardstick (`graphed=False`) and their
+    body with keyframe full BA."""
+    from pose_estimation_tpu_torch import load_config
+    from pose_estimation_tpu_torch import slam as slam_mod
+    from pose_estimation_tpu_torch.io import euroc as euroc_io
+    from pose_estimation_tpu_torch.io import kitti as kitti_io
+    from pose_estimation_tpu_torch.utils.config import _parse_opencv_yaml
+
+    cfg = load_config(yml, dataset=kind, **overrides)
+    slam = slam_mod.VisualInertialSLAM(cfg, device=dev, graphed=graphed)
+    if kind == "euroc":
+        euroc_io.run_euroc(slam, euroc_io.EurocDataset(cfg.dataset_path),
+                           speed_up=cfg.speed_up)
+    else:
+        raw = _parse_opencv_yaml(yml)
+        kitti_io.run_kitti(slam, kitti_io.KittiDataset(cfg.dataset_path),
+                           int(raw.get("maxNumImu", 10**9)), int(raw.get("maxNumImage", 10**9)),
+                           cfg.sampling_rate // cfg.camera_frequency)
+    slam.save_results(str(states_csv))
+    return slam
 
 
 def entry_point_checks(dev) -> dict:
@@ -1467,8 +1944,10 @@ def entry_point_checks(dev) -> dict:
     directory through `run_euroc.main` (K1 and K2), again through the
     CLI's body with keyframe full BA (`load_config(..., full_ba_keyframes=
     True)` -> VisualInertialSLAM -> `io.euroc.run_euroc`), and the KITTI
-    directory through `run_kitti.main` (K3 and K2), each under
-    `check_replay`'s gates. Then the EuRoC directory again through the
+    directory through `run_kitti.main` (K3 and K2), all graphed, and each
+    dataset again through the CLI's body eagerly (`replay_cli_body`,
+    `graphed=False`), whose states.csv must equal the graphed one's, each
+    under `check_replay`'s gates. Then the EuRoC directory again through the
     CLI's body, unprofiled, in turns: without a viewer, with a `LiveViewer`
     attached (pushes only: the card's machine has no matplotlib to render
     with), which must get one pose per OK frame, one keyframe commit per
@@ -1511,53 +1990,81 @@ def entry_point_checks(dev) -> dict:
         out["png_frames_checked"] = len(written)
 
         gt = euroc_io.EurocDataset(str(mav0)).ground_truth()
-        for label, full in (("EuRoC CLI", False), ("EuRoC, full BA", True)):
-            csv = tmp / f"states_{'full_ba' if full else 'default'}.csv"
+        for label, full, eager in (("EuRoC CLI", False, False), ("EuRoC, eager", False, True),
+                                   ("EuRoC, full BA", True, False),
+                                   ("EuRoC, full BA, eager", True, True)):
+            key = ("euroc_full_ba" if full else "euroc") + ("_eager" if eager else "")
+            csv = tmp / f"states_{key}.csv"
             zero_counters()
-            with counted_extractions() as extractions, observed_replays(profile=True) as made:
+            with observed_replays(profile=eager) as made:
                 t0 = time.perf_counter()
-                if not full:
+                if not (full or eager):
                     run_euroc.main(["--config", str(e_yml), "--out", str(csv), "--ate"])
                 else:
-                    cfg = load_config(e_yml, dataset="euroc", full_ba_keyframes=True)
-                    slam = slam_mod.VisualInertialSLAM(cfg, device=dev)
-                    euroc_io.run_euroc(slam, euroc_io.EurocDataset(str(mav0)),
-                                       speed_up=cfg.speed_up)
-                    slam.save_results(str(csv))
+                    replay_cli_body("euroc", e_yml, csv, dev, graphed=not eager,
+                                    **({"full_ba_keyframes": True} if full else {}))
                 wall = time.perf_counter() - t0
             (slam,) = made
-            if slam.device != dev or slam.static.full_ba_keyframes != full:
+            if slam.device != dev or slam.static.full_ba_keyframes != full \
+                    or slam.graphed == eager:
                 fail(f"{label}: ran on {slam.device} with full BA "
-                     f"{slam.static.full_ba_keyframes}")
-            r = check_replay(label, slam, gt, csv, extractions[0], counters(),
-                             ("fast_select", "sample_patches"))
+                     f"{slam.static.full_ba_keyframes}, graphed {slam.graphed}")
+            r = check_replay(label, slam, gt, csv, counters(), ("fast_select", "sample_patches"))
             frames = slam.observed["frames"]
             kf = [is_keyframe(f["metrics"]) for f in frames]
             for name, pick in (("keyframe", True), ("other", False)):
                 counted = [f["device_kernels"] for f, k in zip(frames, kf)
                            if k == pick and f["device_kernels"]]
                 r[f"device_kernels_{name}"] = float(np.mean(counted)) if counted else None
-                if full:
+                if full and eager:
                     iters = [int(f["full_ba_iters"]) for f, k in zip(frames, kf) if k == pick]
                     r[f"full_ba_iters_{name}"] = float(np.mean(iters)) if iters else None
             n_prof = sum(f["device_kernels"] is not None for f in frames)
             r.update(keyframes=sum(kf), wall_s=wall, profiled_frames=n_prof)
-            print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; kernels a "
-                  f"frame by the profiler ({n_prof} OK frames from {ENTRY_PROFILE_FROM}): "
-                  f"keyframe {r['device_kernels_keyframe']}, other "
-                  f"{r['device_kernels_other']}"
-                  + (f"; full-BA LM iterations: keyframe {r['full_ba_iters_keyframe']}, "
-                     f"other {r['full_ba_iters_other']} (computed, not kept)" if full else "")
-                  + f"; {wall:.1f} s")
-            out["euroc_full_ba" if full else "euroc"] = r
+            if not eager:
+                r["graphs"] = slam._graphs.stats()
+                print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; graphs "
+                      + "; ".join(graph_line(n, g) for n, g in r["graphs"].items())
+                      + f"; {wall:.1f} s")
+            else:
+                graphed = out[key[:-len("_eager")]]
+                same = csv.read_text() == (tmp / f"states_{key[:-len('_eager')]}.csv").read_text()
+                r["bit_equal_to_graphed"] = same
+                print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; kernels a "
+                      f"frame by the profiler ({n_prof} OK frames from {ENTRY_PROFILE_FROM}): "
+                      f"keyframe {r['device_kernels_keyframe']}, other "
+                      f"{r['device_kernels_other']}"
+                      + (f"; full-BA LM iterations: keyframe {r['full_ba_iters_keyframe']}, "
+                         f"other {r['full_ba_iters_other']} (computed, not kept)" if full else "")
+                      + f"; {r['ms_per_ok_frame']:.2f} ms per OK frame against "
+                      f"{graphed['ms_per_ok_frame']:.2f} graphed; states.csv "
+                      + ("bit-equal to the graphed replay's" if same else "DIFFERS")
+                      + f"; {wall:.1f} s")
+                if not same:
+                    fail(f"{label}: states.csv differs from the graphed replay's")
+            out[key] = r
 
-        kcsv = tmp / "states_kitti.csv"
-        zero_counters()
-        with counted_extractions() as extractions, observed_replays() as made:
-            run_kitti.main(["--config", str(k_yml), "--out", str(kcsv)])
-        (slam,) = made
-        out["kitti"] = check_replay("KITTI CLI", slam, kgt, kcsv, extractions[0], counters(),
-                                    ("fast_score_nms", "sample_patches"))
+        for key, eager in (("kitti", False), ("kitti_eager", True)):
+            kcsv = tmp / f"states_{key}.csv"
+            zero_counters()
+            with observed_replays() as made:
+                if eager:
+                    replay_cli_body("kitti", k_yml, kcsv, dev, graphed=False)
+                else:
+                    run_kitti.main(["--config", str(k_yml), "--out", str(kcsv)])
+            (slam,) = made
+            if slam.graphed == eager:
+                fail(f"KITTI: graphed {slam.graphed} in the {key} replay")
+            out[key] = check_replay("KITTI, eager" if eager else "KITTI CLI", slam, kgt, kcsv,
+                                    counters(), ("fast_score_nms", "sample_patches"))
+        same = ((tmp / "states_kitti.csv").read_text()
+                == (tmp / "states_kitti_eager.csv").read_text())
+        out["kitti_eager"]["bit_equal_to_graphed"] = same
+        print(f"  KITTI CLI: {out['kitti']['ms_per_ok_frame']:.2f} ms per OK frame graphed, "
+              f"{out['kitti_eager']['ms_per_ok_frame']:.2f} eager; states.csv "
+              + ("bit-equal" if same else "DIFFERS"))
+        if not same:
+            fail("KITTI CLI: the eager replay's states.csv differs from the graphed one's")
 
         class CountingViewer(LiveViewer):
             """A LiveViewer that counts its pose, keyframe and landmark pushes."""
@@ -1584,9 +2091,9 @@ def entry_point_checks(dev) -> dict:
             csv = tmp / f"states_{key}.csv"
             viewer = CountingViewer() if key == "euroc_viewer" else None
             zero_counters()
-            with counted_extractions() as extractions, observed_replays() as made, \
-                    (timed_stages() if key == "euroc_staged" else contextlib.nullcontext()) \
-                    as timers:
+            with observed_replays() as made, \
+                    (timed_stages(graphed=True) if key == "euroc_staged"
+                     else contextlib.nullcontext()) as timers:
                 slam = slam_mod.VisualInertialSLAM(cfg, device=dev,
                                                    staged=key == "euroc_staged")
                 if viewer is not None:
@@ -1594,8 +2101,7 @@ def entry_point_checks(dev) -> dict:
                 euroc_io.run_euroc(slam, euroc_io.EurocDataset(str(mav0)),
                                    speed_up=cfg.speed_up)
                 slam.save_results(str(csv))
-            r = check_replay(label, slam, gt, csv, extractions[0], counters(),
-                             ("fast_select", "sample_patches"))
+            r = check_replay(label, slam, gt, csv, counters(), ("fast_select", "sample_patches"))
             frames = slam.observed["frames"]
             if viewer is not None:
                 want = {"pose": len(frames), "landmark": slam._frame_count
@@ -1614,8 +2120,9 @@ def entry_point_checks(dev) -> dict:
             if timers is not None:
                 r["stage_ms"] = stage_split(timers)
                 if any((f["launches"]["fast_select"], f["launches"]["sample_patches"])
-                       != (1, 1) for f in frames):
-                    fail(f"{label}: launches per OK frame {[f['launches'] for f in frames]}")
+                       != (f["extractions"],) * 2 or not f["extractions"] for f in frames):
+                    fail(f"{label}: launches per OK frame {[f['launches'] for f in frames]}, "
+                         f"extractions {[f['extractions'] for f in frames]}")
                 print(f"  {label}: per OK frame, each stage synchronized: "
                       + ", ".join(f"{k} {v:.2f}" for k, v in r["stage_ms"].items())
                       + f" ms, sum {sum(r['stage_ms'].values()):.2f}, against "
@@ -1637,6 +2144,7 @@ def main() -> None:
                                                    seeded_state, sim_frames,
                                                    synthetic_config)
     from pose_estimation_tpu_torch.utils.precision import require_cuda
+    from pose_estimation_tpu_torch.utils.tree import tree_leaves
 
     # ---- phase 1: the card
     dev = require_cuda()
@@ -1679,28 +2187,26 @@ def main() -> None:
     def run_chain(label, static, seed=0):
         """N_FRAMES chained ok_steps from the seeded window, the RANSAC
         draws from `seed`. Returns (launches, ms per frame after the
-        warm-up, the largest error in m beyond DIVERGED_PER_M x distance,
-        the stereo pairs extracted)."""
+        warm-up, the largest error in m beyond DIVERGED_PER_M x distance)."""
         state = seeded_state(static, truth, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         torch.cuda.synchronize()
         zero_counters()
         metrics = []
         t_start = t_warm = time.perf_counter()
-        with counted_extractions() as extractions:
-            for i in range(N_FRAMES):
-                if i == WARMUP:
-                    torch.cuda.synchronize()
-                    t_warm = time.perf_counter()
-                state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
-                metrics.append(m)
-            torch.cuda.synchronize()
+        for i in range(N_FRAMES):
+            if i == WARMUP:
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+            state, m = vio.ok_step(state, *inputs[i], gen, consts, static)
+            metrics.append(m)
+        torch.cuda.synchronize()
         t_end = time.perf_counter()
         launches = counters()
         ms_frame = (t_end - t_warm) * 1e3 / (N_FRAMES - WARMUP)
         print(f"{label}: {N_FRAMES} frames in {t_end - t_start:.2f} s; chained "
               f"{ms_frame:.2f} ms/frame over frames {WARMUP}-{N_FRAMES - 1}; "
-              f"{extractions[0]} extractions, launches {launches}")
+              f"launches {launches}")
         dist, excess = 0.0, -math.inf
         for i, m in enumerate(metrics):
             dist += float(np.linalg.norm(truth(i + 1)[1] - truth(i)[1]))
@@ -1723,38 +2229,37 @@ def main() -> None:
                   if t.is_floating_point()]
         if not all(bool(torch.isfinite(t).all()) for t in leaves):
             fail(f"{label}: non-finite state")
-        return launches, ms_frame, excess, extractions[0]
+        return launches, ms_frame, excess
 
-    launches, ms_frame, excess, n_extract = run_chain("ok_step", static)
+    launches, ms_frame, excess = run_chain("ok_step", static)
     if excess > DIVERGED_M:
         fail(f"ok_step: diverged, {excess:.3f} m beyond {DIVERGED_PER_M} x the distance")
-    if n_extract != N_FRAMES or launches["fast_select"] != n_extract \
-            or launches["sample_patches"] != n_extract:
-        fail(f"ok_step on the kernel path must launch K1 and K2 once per extraction "
-             f"({n_extract} in {N_FRAMES} frames): {launches}")
+    if (launches["fast_select"], launches["sample_patches"]) != (N_FRAMES, N_FRAMES):
+        fail(f"ok_step on the kernel path must launch K1 and K2 once a frame "
+             f"({N_FRAMES} frames): {launches}")
     if launches["fast_score_nms"] or launches["moment_maps"]:
         fail(f"ok_step on the kernel path at a width divisible by 16 launched K3 or K4: "
              f"{launches}")
     full_static = dataclasses.replace(static, full_ba_keyframes=True)
-    full_launches, full_ms_frame, full_excess, full_extract = run_chain(
+    full_launches, full_ms_frame, full_excess = run_chain(
         "ok_step, keyframe full BA", full_static)
     if full_excess > DIVERGED_M:
         fail(f"ok_step with full BA: diverged, {full_excess:.3f} m beyond {DIVERGED_PER_M} x "
              "the distance")
-    if (full_launches["fast_select"], full_launches["sample_patches"]) != (full_extract,) * 2:
-        fail(f"ok_step with full BA: launches {full_launches} in {full_extract} extractions")
+    if (full_launches["fast_select"], full_launches["sample_patches"]) != (N_FRAMES, N_FRAMES):
+        fail(f"ok_step with full BA: launches {full_launches} in {N_FRAMES} frames")
     print(f"keyframe full BA: {full_ms_frame:.2f} ms/frame beside {ms_frame:.2f} without")
     map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
     map_chains = [run_chain(f"ok_step, map front end, seed {seed}", map_static, seed)
                   for seed in MAP_SEEDS]
-    for chain_launches, _, _, _ in map_chains:
+    for chain_launches, _, _ in map_chains:
         if (chain_launches["fast_select"], chain_launches["moment_maps"]) \
                 != (N_FRAMES, N_FRAMES) \
                 or chain_launches["sample_patches"] or chain_launches["fast_score_nms"]:
             fail(f"the map front end must launch K1 and K4 once per frame and K2 and K3 "
                  f"never: {chain_launches}")
-    map_launches, map_ms_frame, _, _ = map_chains[0]
-    map_excess = [x for _, _, x, _ in map_chains]
+    map_launches, map_ms_frame, _ = map_chains[0]
+    map_excess = [x for _, _, x in map_chains]
     map_held = sum(x <= DIVERGED_M for x in map_excess)
     print(f"map front end: {map_held} of {len(MAP_SEEDS)} chains within {DIVERGED_PER_M} x "
           f"distance + {DIVERGED_M} m (largest excess per chain, m: "
@@ -1765,6 +2270,9 @@ def main() -> None:
 
     # ---- phase 4b: the staged OK path and ok_scan on the kernel path's chain
     staged = staged_checks(dev, consts, static, inputs, truth)
+
+    # ---- phase 4c: the captured graphs against the eager steps
+    graphed = graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask)
 
     # ---- phase 5: the kernel path against the CPU twin path on a small
     # input. The CPU path is the one tests/test_torch_vio.py holds to the
@@ -1827,7 +2335,8 @@ def main() -> None:
     # in one frame step, and a checkpoint
     batched_res = batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth)
 
-    # ---- phase 7: the host state machine at KITTI width (K3's route)
+    # ---- phase 7: the host state machine at KITTI width (K3's route),
+    # graphed (the default), then eager: the same run bit for bit
     kworld = StereoInertialSim(kcfg, n_landmarks=150, seed=0)
     zero_counters()
     t0 = time.perf_counter()
@@ -1839,13 +2348,15 @@ def main() -> None:
         fail(f"KITTI width: the state machine ended in {kslam.state.name} "
              f"after {len(kframes)} OK frames")
     if (kitti_launches["fast_score_nms"], kitti_launches["sample_patches"]) \
-            != (k_extract, k_extract):
-        fail(f"KITTI width: launches {kitti_launches} in {k_extract} extractions (K3 and K2 "
-             "once each)")
+            != (k_extract, k_extract) or kitti_launches["fast_select"]:
+        fail(f"KITTI width: launches {kitti_launches} (K3 and K2 once an extraction, K1 "
+             "never)")
     for i, fr in enumerate(kframes):
         n = fr["launches"]
-        if n["fast_select"] or n["fast_score_nms"] != 1 or n["sample_patches"] != 1:
-            fail(f"KITTI width, OK frame {i}: launches {n} (K3 and K2 once, K1 never)")
+        if n["fast_select"] or n["sample_patches"] != n["fast_score_nms"] \
+                or not n["fast_score_nms"]:
+            fail(f"KITTI width, OK frame {i}: launches {n} (K3 and K2 once an extraction, "
+                 "at least once, K1 never)")
         cost = float(fr["metrics"]["ba_cost"])
         if not cost >= 0.0:
             fail(f"KITTI width, OK frame {i}: BA cost {cost} is negative or not finite")
@@ -1857,14 +2368,32 @@ def main() -> None:
     if (k_err > DIVERGED_PER_M * k_dist + DIVERGED_M).any():
         i = int(np.argmax(k_err - DIVERGED_PER_M * k_dist))
         fail(f"KITTI width: frame {i} {k_err[i]:.3f} m off after {k_dist[i]:.3f} m")
-    kitti_ms = float(np.mean([fr["ms"] for fr in kframes if "ms" in fr]))
+    k_times = frame_times(kframes)
+    kitti_ms, kitti_median = k_times["mean_ms"], k_times["median_ms"]
+    kitti_graphs = kslam._graphs.stats()
+    eslam, _, eframes, _ = run_state_machine(kcfg, StereoInertialSim(kcfg, n_landmarks=150,
+                                                                     seed=0),
+                                             6.0, 10, 0, dev, graphed=False)
+    ke_times = frame_times(eframes)
+    kitti_eager_ms, kitti_eager_median = ke_times["mean_ms"], ke_times["median_ms"]
+    kitti_same = (np.array_equal(kslam.trajectory, eslam.trajectory)
+                  and all(torch.equal(a, b) for a, b in zip(tree_leaves(kslam.vio),
+                                                            tree_leaves(eslam.vio))))
     print(f"state machine at KITTI width ({kcfg.image_width}x{kcfg.image_height}, "
           f"{kcfg.level_pyramid} levels, {kcfg.num_features} features, 6 s, "
-          f"{k_wall:.1f} s): {len(kframes)} OK frames, {kitti_ms:.2f} ms/frame over them; "
+          f"{k_wall:.1f} s): {len(kframes)} OK frames, {kitti_ms:.2f} ms/frame over them "
+          f"graphed (median {kitti_median:.2f}; the first, which captures, left out), "
+          f"{kitti_eager_ms:.2f} eager (median {kitti_eager_median:.2f}); "
           f"ATE {ke['ate_pct']:.3f} % of path, |ba| {ke['ba']:.4f}, |bg| {ke['bg']:.5f}, "
           f"worst aligned error {k_err.max():.3f} m; {k_extract} extractions, launches "
-          f"{kitti_launches}; "
-          f"marginalization clip {kitti_clip}")
+          f"{kitti_launches}; marginalization clip {kitti_clip}; graphs "
+          + "; ".join(graph_line(n, g) for n, g in kitti_graphs.items())
+          + "; the eager run's trajectory and state "
+          + ("bit-equal" if kitti_same else "DIFFER"))
+    print(f"  KITTI width, graphed: {frame_times_line(k_times)}")
+    print(f"  KITTI width, eager: {frame_times_line(ke_times)}")
+    if not kitti_same:
+        fail("KITTI width: the graphed state machine differs from the eager one")
 
     # ---- phase 8: the accuracy protocol (benchmarks/chip_accuracy.py), its
     # runs in worker processes that share the card, the longest first
@@ -1966,8 +2495,10 @@ def main() -> None:
     # EuRoC-width chain on the kernel path for K1 and K2, the KITTI-width
     # state machine for K3, the map front end's chain for K4, the probe's
     # sweep for K5), then the paths that run K1, K2 or K3 beside it: the
-    # staged frames, ok_scan, the unprofiled EuRoC replays without and
-    # with the viewer and staged, and the mesh dry run's ranks.
+    # staged frames, ok_scan, the graphed chains, staged frames, ok_scan
+    # and batched step (launches run: each graph's recorded launches times
+    # its replays, and the warm-up's), the unprofiled EuRoC replays without
+    # and with the viewer and staged, and the mesh dry run's ranks.
     main_launches = {"fast_select": launches["fast_select"],
                      "sample_patches": launches["sample_patches"],
                      "fast_score_nms": kitti_launches["fast_score_nms"],
@@ -1975,6 +2506,11 @@ def main() -> None:
                      "stream_probe": k["stream_probe"]["launches"]}
     by_path = {name: {"main": n} for name, n in main_launches.items()}
     for path, counts in (("staged", staged["launches"]), ("ok_scan", staged["scan_launches"]),
+                         ("graphed_chain", graphed["chain"]["launches"]),
+                         ("graphed_map_chain", graphed["map_chain"]["launches"]),
+                         ("graphed_staged", graphed["staged"]["launches"]),
+                         ("graphed_ok_scan", graphed["ok_scan"]["launches"]),
+                         ("graphed_batched", graphed["batched"]["launches"]),
                          *((key, entry[key]["launches"]) for key in
                            ("euroc_plain", "euroc_viewer", "euroc_staged")),
                          ("mesh_dryrun", mesh["launches"])):
@@ -2002,7 +2538,10 @@ def main() -> None:
         for name, (src, replaces) in sources.items()
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
         "kitti_ms_per_ok_frame": kitti_ms, "full_ba_ok_step_ms_per_frame": full_ms_frame,
-        "entry_points": entry, "staged": staged, "mesh": mesh,
+        "kitti_eager_ms_per_ok_frame": kitti_eager_ms, "kitti_graphs": kitti_graphs,
+        "kitti_median_ms": {"graphed": kitti_median, "eager": kitti_eager_median},
+        "kitti_frame_times": {"graphed": k_times, "eager": ke_times},
+        "entry_points": entry, "staged": staged, "graphed": graphed, "mesh": mesh,
         "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
                     "frames_per_s": batched_res["frames_per_s"],
                     "lane_p_err": batched_res["lane_p_err"],

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from pose_estimation_tpu_torch.backend import lm as lm_mod
@@ -146,39 +145,58 @@ def prior_delta(win: WindowState) -> torch.Tensor:
     return torch.where(win.prior_on, d0, 0.0)
 
 
-def _marg_indices(wsize: int):
-    """(dropped dims, kept dims) for marginalizing parameter block 0."""
+def _marg_indices(wsize: int, device):
+    """(dropped dims, kept dims) for marginalizing parameter block 0, made
+    on the device (no host-to-device copy, which a CUDA graph cannot
+    capture)."""
+    def r(a, b):
+        return torch.arange(a, b, device=device)
+
     n = 15 * wsize
-    idx_m = np.concatenate([np.arange(6), 6 * wsize + np.arange(9)])
-    return idx_m, np.setdiff1d(np.arange(n), idx_m)
+    return (torch.cat([r(0, 6), r(6 * wsize, 6 * wsize + 9)]),
+            torch.cat([r(6, 6 * wsize), r(6 * wsize + 9, n)]))
 
 
-def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowState:
-    """Schur-marginalize the outgoing frame from the solved information,
-    clip the result to positive semidefinite, and re-index the rest into
-    the post-roll layout."""
-    wsize = win.R.shape[0] - 1
-    n = 15 * wsize
-    dtype, dev = win.R.dtype, win.R.device
-    idx_m, idx_r = (torch.as_tensor(a, device=dev) for a in _marg_indices(wsize))
+def marg_schur(h_final, wsize: int, forget: float = 1.0) -> torch.Tensor:
+    """The Schur complement [15(W-1), 15(W-1)] that marginalizes the
+    outgoing frame (parameter block 0) out of the solved information."""
+    dtype, dev = h_final.dtype, h_final.device
+    idx_m, idx_r = _marg_indices(wsize, dev)
     h = 0.5 * (h_final + h_final.T)
     h_mm = h[idx_m][:, idx_m] + 1e-8 * torch.eye(len(idx_m), dtype=dtype, device=dev)
     h_rm = h[idx_r][:, idx_m]
     h_rr = h[idx_r][:, idx_r]
     schur = h_rr - h_rm @ torch.linalg.solve_ex(h_mm, h_rm.T)[0]
-    schur = 0.5 * (schur + schur.T) * forget
-    # A Schur complement of an information matrix is positive semidefinite,
-    # but not in float32 when h_mm is near singular (frames the data does
-    # not constrain): the solve multiplies rounding errors of h_rm by up to
-    # 1e8, and eigenvalues of -4e3 against +5e2 were seen on a seeded
-    # window. An indefinite prior makes the BA cost unbounded below and LM
-    # runs away along it.
-    # Negative eigenvalues are clipped to zero, in float64 so that the
-    # clipping itself adds no rounding (a deviation from the JAX package,
-    # which keeps them).
+    return 0.5 * (schur + schur.T) * forget
+
+
+def psd_clip(schur: torch.Tensor) -> torch.Tensor:
+    """The Schur complement [..., n, n] with its negative eigenvalues set
+    to zero.
+
+    A Schur complement of an information matrix is positive semidefinite,
+    but not in float32 when h_mm is near singular (frames the data does
+    not constrain): the solve multiplies rounding errors of h_rm by up to
+    1e8, and eigenvalues of -4e3 against +5e2 were seen on a seeded
+    window. An indefinite prior makes the BA cost unbounded below and LM
+    runs away along it. The clip runs in float64, so that it adds no
+    rounding itself (a deviation from the JAX package, which keeps them).
+    `torch.linalg.eigh` checks its result on the host: this is the one
+    step of the OK frame that a CUDA graph cannot capture, so the graphed
+    frame runs it between its two graphs (`graphs.py`)."""
+    dtype = schur.dtype
     evals, evecs = torch.linalg.eigh(schur.double())
-    schur = ((evecs * torch.clamp(evals, min=0.0)) @ evecs.T).to(dtype)
-    schur = 0.5 * (schur + schur.T)
+    out = ((evecs * torch.clamp(evals, min=0.0)[..., None, :])
+           @ evecs.transpose(-1, -2)).to(dtype)
+    return 0.5 * (out + out.transpose(-1, -2))
+
+
+def marg_apply(win: WindowState, schur) -> WindowState:
+    """The clipped Schur complement as the window's new prior, re-indexed
+    into the post-roll layout, with the linearization states rolled."""
+    wsize = win.R.shape[0] - 1
+    n = 15 * wsize
+    dtype, dev = win.R.dtype, win.R.device
     # the kept blocks at their post-roll places: the pose part at [0, P),
     # the (v, dbg, dba) part at [6W, 6W + V), zero rows and columns between
     pd = 6 * (wsize - 1)
@@ -204,6 +222,14 @@ def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowS
         lin_ba=roll_blk(win.ics.ba_i + win.dba[1:]),
         prior_on=torch.ones_like(win.prior_on),
     )
+
+
+def marginalize_prior(win: WindowState, h_final, forget: float = 1.0) -> WindowState:
+    """Schur-marginalize the outgoing frame from the solved information,
+    clip the result to positive semidefinite, and re-index the rest into
+    the post-roll layout: `marg_schur`, `psd_clip`, `marg_apply`."""
+    wsize = win.R.shape[0] - 1
+    return marg_apply(win, psd_clip(marg_schur(h_final, wsize, forget)))
 
 
 def build_normal_problem(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,

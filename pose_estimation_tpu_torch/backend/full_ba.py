@@ -31,6 +31,7 @@ from pose_estimation_tpu_torch.backend import residuals as res
 from pose_estimation_tpu_torch.backend.ba import Calib, LandmarkObs
 from pose_estimation_tpu_torch.models.window import WindowState
 from pose_estimation_tpu_torch.utils import lie
+from pose_estimation_tpu_torch.utils.linalg import cho_solve
 
 
 def _reproj_residual(win: WindowState, obs: LandmarkObs, obs_mask, calib: Calib,
@@ -160,7 +161,7 @@ def full_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
         g_s = g_p - torch.cat([g_red, zeros_vb])
 
         chol, info = torch.linalg.cholesky_ex(s_mat + 1e-30 * eye_n)
-        step_p = -torch.cholesky_solve(g_s[:, None], chol)[:, 0]
+        step_p = -cho_solve(chol, g_s[:, None])[:, 0]
         bad = (info != 0) | ~torch.all(torch.isfinite(step_p))
         step_p = torch.where(bad, 0.0, step_p)
 
@@ -173,8 +174,8 @@ def full_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
     x_lm = torch.zeros((L, 3), dtype=dtype, device=dev)
     cost, r_pairs, err, w_lm = cost_of(x_pose, x_lm)
     cost0 = cost
-    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
 

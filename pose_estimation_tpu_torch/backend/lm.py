@@ -8,7 +8,8 @@ BA). The JAX `lax.while_loop` becomes a loop of exactly `max_iterations`
 iterations that freezes the state once it is done, which gives the same
 iterate and iteration count with no host sync per iteration. A Cholesky
 failure zeroes the step, which is then rejected (`jnp.linalg.cholesky`
-returns NaN there; `torch.linalg.cholesky_ex` reports it in `info`).
+returns NaN there; `torch.linalg.cholesky_ex` reports it in `info`). No
+step reads a result on the host, so a CUDA graph captures the loop.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from pose_estimation_tpu_torch.utils.linalg import cho_solve
 
 
 class LMOptions(NamedTuple):
@@ -52,8 +55,8 @@ def lm_solve(residual_fn: Callable, jac: torch.Tensor, x0: torch.Tensor,
     dtype, dev = x0.dtype, x0.device
     eye = torch.eye(x0.shape[0], dtype=dtype, device=dev)
     x = x0
-    lam = torch.tensor(options.initial_lambda, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    lam = torch.full((), options.initial_lambda, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -67,7 +70,7 @@ def lm_solve(residual_fn: Callable, jac: torch.Tensor, x0: torch.Tensor,
         d = torch.diagonal(h)
         d = torch.where(d > 0, d, 1.0)
         chol, info = torch.linalg.cholesky_ex(h + lam * torch.diag(d) + 1e-32 * eye)
-        step = -torch.cholesky_solve(g[:, None], chol)[:, 0]
+        step = -cho_solve(chol, g[:, None])[:, 0]
         bad_chol = (info != 0) | ~torch.all(torch.isfinite(step))
         step = torch.where(bad_chol, 0.0, step)
 
@@ -116,8 +119,8 @@ def lm_solve_normal(normal_fn: Callable, x0: torch.Tensor,
     n = x0.shape[0]
     eye = torch.eye(n, dtype=dtype, device=dev)
     x = x0
-    lam = torch.tensor(options.initial_lambda, dtype=dtype, device=dev)
-    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    lam = torch.full((), options.initial_lambda, dtype=dtype, device=dev)
+    nu = torch.full((), 2.0, dtype=dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -129,7 +132,7 @@ def lm_solve_normal(normal_fn: Callable, x0: torch.Tensor,
         d = torch.where(d > 0, d, 1.0)
         h_damped = h + lam * torch.diag(d) + 1e-32 * eye
         chol, info = torch.linalg.cholesky_ex(h_damped)
-        step = -torch.cholesky_solve(g[:, None], chol)[:, 0]
+        step = -cho_solve(chol, g[:, None])[:, 0]
         bad_chol = (info != 0) | ~torch.all(torch.isfinite(step))
         step = torch.where(bad_chol, 0.0, step)
 

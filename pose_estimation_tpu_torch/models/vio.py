@@ -3,7 +3,7 @@ temporal matching -> motion-only BA -> keyframe decision -> pool update;
 and the bootstrap steps before it (SfM frame, first OK frame).
 
 Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
-`init_vio_state`, `extract_rectified`, `front_end`, `_run_backend`,
+`init_vio_state`, `extract_rectified`, `front_end`, `_run_backend` (here `stage_ba`),
 `pool_update`, `ok_step`, `ok_scan`, the stages `stage_imu`,
 `stage_frontend`, `stage_ba` and `stage_pool`, `sfm_step`,
 `bootstrap_frame`). The frame step is the composition of the stages, so
@@ -124,8 +124,8 @@ def build_constants(cfg, cm, device) -> tuple[VIOConstants, VIOStatic]:
         if value not in ("auto", "pallas", "xla"):
             raise ValueError(f"{name} {value!r}")
         backends[name] = "pallas" if value == "auto" else value
-    apply_policy()
     device = torch.device(device)
+    apply_policy(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32,
@@ -289,48 +289,26 @@ def keyframe_full_ba(win, pool, consts: VIOConstants, static: VIOStatic):
     return win, pool._replace(pos=pool.pos + dlm)
 
 
-def _run_backend(state: VIOState, tr_n_matches, consts: VIOConstants,
-                 static: VIOStatic):
-    """Motion-only BA (its result kept only with circular matches), keyframe
-    decision, keyframe full BA (where configured), marginalization (on a
-    keyframe of a full window) and bias bookkeeping, each computed and then
-    selected. The keyframe decision stays the motion-only solve's; the
-    marginalization takes the motion-only information at the state after
-    full BA. Returns (state, ba_cost, ba_iters)."""
-    win = state.win
-    wsize = win.R.shape[0] - 1
-    has_matches = tr_n_matches > 0
-    obs = LandmarkObs(state.pool.pos, state.pool.obs_px, state.pool.obs_mask)
-    dpose, dvdbga, info = ba_mod.motion_only_ba(
-        win, obs, consts.calib, consts.gravity, static.prior_factor,
-        static.max_iterations, use_marg_prior=static.marg_prior,
-        ba_prior_sigma=static.ba_prior_sigma,
-    )
-    solved = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
-                                  static.max_acc_bias)
-    solved = win_mod.check_keyframe(solved, static.keyframe_rotation,
-                                    static.keyframe_translation, static.max_imu_time)
-    win = select(has_matches, solved, win)
-    ba_cost = torch.where(has_matches, info["final_cost"], 0.0)
-    ba_iters = torch.where(has_matches, info["iterations"], 0)
-    kf = win.is_keyframe & has_matches
-    pool = state.pool
-    if static.full_ba_keyframes:
-        full_win, full_pool = keyframe_full_ba(win, pool, consts, static)
-        win, pool = select(kf, full_win, win), select(kf, full_pool, pool)
-    if static.marg_prior:
-        do_marg = kf & (win.n_act >= wsize)
-        # the side not taken gets a benign information matrix, so that its
-        # solve and eigendecomposition see finite, well-conditioned input
-        eye = torch.eye(15 * wsize, dtype=win.R.dtype, device=win.R.device)
-        ba_h = torch.where(do_marg, info["marg_h"], eye)
-        win = select(do_marg, ba_mod.marginalize_prior(win, ba_h, static.marg_forget), win)
+class BackendCarry(NamedTuple):
+    """The backend between its solve and the end of the marginalization:
+    the state after the motion-only BA, the keyframe decision and keyframe
+    full BA; the frame's BA cost and iterations; the keyframe flag, the
+    marginalization flag and the raw Schur complement (False and [0, 0]
+    without the marginalization prior). `ba_mod.psd_clip` of `schur` is
+    the one step of the OK frame with a host read: the graphed frame
+    (`graphs.py`) runs it between two graphs."""
 
-    new_bg = torch.where(kf, win.ics.bg_i[-1] + win.dbg[-1], state.bg)
-    new_ba = torch.where(kf, win.ics.ba_i[-1] + win.dba[-1], state.ba)
-    preint = select(kf, pre.init_state(win.R.device), state.preint)
-    return (state._replace(win=win, pool=pool, preint=preint, bg=new_bg, ba=new_ba),
-            ba_cost, ba_iters)
+    state: VIOState
+    ba_cost: torch.Tensor
+    ba_iters: torch.Tensor
+    kf: torch.Tensor
+    do_marg: torch.Tensor
+    schur: torch.Tensor
+
+
+def psd_clip(schur):
+    """`ba_mod.psd_clip` of a `BackendCarry.schur` (an empty one passes)."""
+    return schur if schur.numel() == 0 else ba_mod.psd_clip(schur)
 
 
 def pool_update(state: VIOState, cur, tr, consts: VIOConstants,
@@ -390,10 +368,70 @@ def stage_frontend(state: VIOState, img_l, img_r, ransac_u, consts: VIOConstants
     return stage_match(state, feats_l, feats_r, ransac_u, static)
 
 
-def stage_ba(state: VIOState, tr_n_matches, consts: VIOConstants, static: VIOStatic):
-    """`_run_backend`: returns (state, ba_cost, ba_iters)."""
+def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
+                   static: VIOStatic) -> BackendCarry:
+    """`stage_ba` up to the PSD clip: motion-only BA (its result kept only
+    with circular matches), keyframe decision, keyframe full BA (where
+    configured) and the Schur complement of the marginalization (on a
+    keyframe of a full window), each computed and then selected. The
+    keyframe decision stays the motion-only solve's; the marginalization
+    takes the motion-only information at the state after full BA."""
     with _span("ok_step.backend"):
-        return _run_backend(state, tr_n_matches, consts, static)
+        win = state.win
+        wsize = win.R.shape[0] - 1
+        has_matches = tr_n_matches > 0
+        obs = LandmarkObs(state.pool.pos, state.pool.obs_px, state.pool.obs_mask)
+        dpose, dvdbga, info = ba_mod.motion_only_ba(
+            win, obs, consts.calib, consts.gravity, static.prior_factor,
+            static.max_iterations, use_marg_prior=static.marg_prior,
+            ba_prior_sigma=static.ba_prior_sigma,
+        )
+        solved = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
+                                      static.max_acc_bias)
+        solved = win_mod.check_keyframe(solved, static.keyframe_rotation,
+                                        static.keyframe_translation, static.max_imu_time)
+        win = select(has_matches, solved, win)
+        ba_cost = torch.where(has_matches, info["final_cost"], 0.0)
+        ba_iters = torch.where(has_matches, info["iterations"], 0)
+        kf = win.is_keyframe & has_matches
+        pool = state.pool
+        if static.full_ba_keyframes:
+            full_win, full_pool = keyframe_full_ba(win, pool, consts, static)
+            win, pool = select(kf, full_win, win), select(kf, full_pool, pool)
+        do_marg = torch.zeros_like(kf)
+        schur = torch.zeros((0, 0), dtype=win.R.dtype, device=win.R.device)
+        if static.marg_prior:
+            do_marg = kf & (win.n_act >= wsize)
+            # the side not taken gets a benign information matrix, so that its
+            # solve and eigendecomposition see finite, well-conditioned input
+            eye = torch.eye(15 * wsize, dtype=win.R.dtype, device=win.R.device)
+            ba_h = torch.where(do_marg, info["marg_h"], eye)
+            schur = ba_mod.marg_schur(ba_h, wsize, static.marg_forget)
+        return BackendCarry(state._replace(win=win, pool=pool), ba_cost, ba_iters, kf,
+                            do_marg, schur)
+
+
+def stage_ba_finish(carry: BackendCarry, schur_psd, static: VIOStatic):
+    """`stage_ba` after the PSD clip: the marginalization prior from the
+    clipped Schur complement (`psd_clip(carry.schur)`), then the bias
+    bookkeeping. Returns (state, ba_cost, ba_iters)."""
+    with _span("ok_step.backend"):
+        state, kf = carry.state, carry.kf
+        win = state.win
+        if static.marg_prior:
+            win = select(carry.do_marg, ba_mod.marg_apply(win, schur_psd), win)
+        new_bg = torch.where(kf, win.ics.bg_i[-1] + win.dbg[-1], state.bg)
+        new_ba = torch.where(kf, win.ics.ba_i[-1] + win.dba[-1], state.ba)
+        preint = select(kf, pre.init_state(win.R.device), state.preint)
+        return (state._replace(win=win, preint=preint, bg=new_bg, ba=new_ba),
+                carry.ba_cost, carry.ba_iters)
+
+
+def stage_ba(state: VIOState, tr_n_matches, consts: VIOConstants, static: VIOStatic):
+    """The backend (JAX `_run_backend`) as `stage_ba_solve`, `psd_clip`,
+    `stage_ba_finish`: returns (state, ba_cost, ba_iters)."""
+    carry = stage_ba_solve(state, tr_n_matches, consts, static)
+    return stage_ba_finish(carry, psd_clip(carry.schur), static)
 
 
 def stage_pool(state: VIOState, cur, tr, tr_n_matches, consts: VIOConstants,
@@ -408,8 +446,8 @@ def stage_pool(state: VIOState, cur, tr, tr_n_matches, consts: VIOConstants,
 
 def frame_metrics(state: VIOState, cur, tr, ba_cost, ba_iters, imu_dt, p_pred) -> dict:
     """A frame's counts and flags as device tensors: the metrics of the
-    staged OK path (JAX `slam.py:380-391`), which `track_step` extends with
-    the record and health-check bundle."""
+    staged OK path (JAX `slam.py:380-391`), which `frame_outputs` extends
+    with the record and health-check bundle."""
     return {
         "n_stereo": torch.sum(cur.valid),
         "n_tracked": tr.n_matches,
@@ -423,20 +461,10 @@ def frame_metrics(state: VIOState, cur, tr, ba_cost, ba_iters, imu_dt, p_pred) -
     }
 
 
-def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
-               consts: VIOConstants, static: VIOStatic, shard=None):
-    """The frame step after ORB extraction, for one sequence: the stages
-    `stage_imu`, `stage_match`, `stage_ba` and `stage_pool` in turn, with no
-    host read, so it maps over sequences with `torch.func.vmap`.
-    `ransac_u` holds the (stereo, temporal) [64, 8] uniforms; `shard`
-    splits the pool's Hamming tables over a model group
-    (`parallel/batched.py`). Returns (new_state, metrics), metrics as
-    device tensors."""
-    state, imu_dt = stage_imu(state, gyr, acc, imu_mask, consts, static)
-    p_pred = state.win.p[-1]
-    state, cur, tr = stage_match(state, feats_l, feats_r, ransac_u, static, shard)
-    state, ba_cost, ba_iters = stage_ba(state, tr.n_matches, consts, static)
-    state = stage_pool(state, cur, tr, tr.n_matches, consts, static)
+def frame_outputs(state: VIOState, cur, tr, ba_cost, ba_iters, imu_dt, p_pred) -> dict:
+    """`frame_metrics` with the record and health-check bundle of the
+    newest window frame: the pose as a quaternion, position, velocity,
+    biases, rotation and IMU constraint."""
     win = state.win
     metrics = frame_metrics(state, cur, tr, ba_cost, ba_iters, imu_dt, p_pred)
     metrics.update({
@@ -448,21 +476,73 @@ def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
         "rec_R": win.R[-1],
         "rec_ic": pre.ImuConstraint(*(a[-1] for a in win.ics)),
     })
-    return state, metrics
+    return metrics
+
+
+class TrackCarry(NamedTuple):
+    """`track_step` up to the PSD clip: the backend's carry, the current
+    features, the track, the IMU constraint's dt and the predicted newest
+    position."""
+
+    ba: BackendCarry
+    cur: tracker.CurrentFeatures
+    tr: tracker.TrackResult
+    imu_dt: torch.Tensor
+    p_pred: torch.Tensor
+
+
+def track_head(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
+               consts: VIOConstants, static: VIOStatic, shard=None) -> TrackCarry:
+    """`stage_imu`, `stage_match` and `stage_ba_solve` in turn."""
+    state, imu_dt = stage_imu(state, gyr, acc, imu_mask, consts, static)
+    p_pred = state.win.p[-1]
+    state, cur, tr = stage_match(state, feats_l, feats_r, ransac_u, static, shard)
+    return TrackCarry(stage_ba_solve(state, tr.n_matches, consts, static), cur, tr,
+                      imu_dt, p_pred)
+
+
+def track_tail(carry: TrackCarry, schur_psd, consts: VIOConstants, static: VIOStatic):
+    """`stage_ba_finish` and `stage_pool` after `track_head`, with the
+    clipped Schur complement. Returns (new_state, metrics)."""
+    state, ba_cost, ba_iters = stage_ba_finish(carry.ba, schur_psd, static)
+    state = stage_pool(state, carry.cur, carry.tr, carry.tr.n_matches, consts, static)
+    return state, frame_outputs(state, carry.cur, carry.tr, ba_cost, ba_iters,
+                                carry.imu_dt, carry.p_pred)
+
+
+def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
+               consts: VIOConstants, static: VIOStatic, shard=None):
+    """The frame step after ORB extraction, for one sequence: the stages
+    `stage_imu`, `stage_match`, `stage_ba` and `stage_pool` in turn, as
+    `track_head`, `psd_clip` and `track_tail`. Only the clip reads on the
+    host, and the head and tail map over sequences with `torch.func.vmap`
+    (`parallel/batched.py`). `ransac_u` holds the (stereo, temporal) [64,
+    8] uniforms; `shard` splits the pool's Hamming tables over a model
+    group. Returns (new_state, metrics), metrics as device tensors."""
+    head = track_head(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts,
+                      static, shard)
+    return track_tail(head, psd_clip(head.ba.schur), consts, static)
+
+
+def ok_head(state: VIOState, img_l, img_r, gyr, acc, imu_mask, ransac_u,
+            consts: VIOConstants, static: VIOStatic) -> TrackCarry:
+    """`ok_step` up to the PSD clip: ORB extraction, then `track_head`."""
+    with _span("ok_step.extract"):
+        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
+    return track_head(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts, static)
 
 
 def ok_step(state: VIOState, img_l, img_r, gyr, acc, imu_mask,
             generator: torch.Generator, consts: VIOConstants, static: VIOStatic,
             ransac_u=None):
-    """One steady-state frame: ORB extraction, then `track_step`. Returns
-    (new_state, metrics), metrics as device tensors. `ransac_u` overrides
-    the RANSAC uniforms drawn from `generator` (the parity tests pass
-    JAX's)."""
+    """One steady-state frame: `ok_head` (ORB extraction and `track_head`),
+    `psd_clip`, `track_tail`. Returns (new_state, metrics), metrics as
+    device tensors. `ransac_u` overrides the RANSAC uniforms drawn from
+    `generator` (the parity tests pass JAX's)."""
     if ransac_u is None:
         ransac_u = draw_ransac_uniforms(generator, state.win.R.device)
-    with _span("ok_step.extract"):
-        feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
-    return track_step(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts, static)
+    head = ok_head(state, img_l, img_r, gyr, acc, imu_mask, ransac_u, consts, static)
+    return track_tail(head, psd_clip(head.ba.schur), consts, static)
 
 
 def ok_scan(state: VIOState, imgs_l, imgs_r, gyrs, accs, imu_masks,

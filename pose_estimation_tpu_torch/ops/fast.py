@@ -97,6 +97,15 @@ def _para(sm, s0, sp):
     return torch.clamp(off, -0.5, 0.5)
 
 
+@functools.lru_cache(maxsize=32)
+def bounds_tensors(bounds: tuple, device):
+    """(heights, widths) [N, 1, 1] of the planes' content on `device`, made
+    once per stack shape: a tensor made from host values inside a step is
+    a copy to the card, which a CUDA graph cannot capture."""
+    return tuple(torch.tensor([b[i] for b in bounds], device=device)[:, None, None]
+                 for i in (0, 1))
+
+
 def select_plain(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
                  border: int = 19, k_per_cell: int = 4):
     """Twin of kernel K1: FAST score -> NMS -> gates -> per-cell threshold
@@ -106,8 +115,7 @@ def select_plain(stack: torch.Tensor, bounds, th_hi: float, th_lo: float,
     dev = stack.device
     score = fast_score(stack)
     keep = nms3(score)
-    lh = torch.tensor([b[0] for b in bounds], device=dev)[:, None, None]
-    lw = torch.tensor([b[1] for b in bounds], device=dev)[:, None, None]
+    lh, lw = bounds_tensors(tuple(bounds), dev)
     ys_ = torch.arange(h, device=dev)[None, :, None]
     xs_ = torch.arange(w, device=dev)[None, None, :]
     inb = (ys_ >= border) & (ys_ < lh - border) & (xs_ >= border) & (xs_ < lw - border)
@@ -390,8 +398,7 @@ def select_keypoints_batched(score: torch.Tensor, bounds, th_hi: float, th_lo: f
     if len(bounds) != n:
         raise ValueError(f"{len(bounds)} bounds for {n} planes")
     keep = (score > 0.0) if pre_nms else nms3(score)
-    lh = torch.tensor([b[0] for b in bounds], device=dev)[:, None, None]
-    lw = torch.tensor([b[1] for b in bounds], device=dev)[:, None, None]
+    lh, lw = bounds_tensors(tuple(bounds), dev)
     ys_ = torch.arange(h, device=dev)[None, :, None]
     xs_ = torch.arange(w, device=dev)[None, None, :]
     inb = (ys_ >= border) & (ys_ < lh - border) & (xs_ >= border) & (xs_ < lw - border)

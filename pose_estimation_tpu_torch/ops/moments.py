@@ -23,6 +23,8 @@ launches `csrc/moment_maps.cu` on a CUDA tensor and runs the twin
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -32,6 +34,14 @@ PATCH_R = 15
 # circle geometry: row offset dy covers |dx| <= RS[dy + 15]
 DYS = np.arange(-PATCH_R, PATCH_R + 1)
 RS = np.floor(np.sqrt(PATCH_R**2 - DYS.astype(np.float64) ** 2)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def circle_rows(device):
+    """(DYS, RS) as int64 tensors on `device`, made once: a tensor made
+    from host values inside a step is a copy to the card, which a CUDA
+    graph cannot capture."""
+    return (torch.as_tensor(DYS, device=device), torch.as_tensor(RS, device=device))
 
 
 def zero_mean(stack: torch.Tensor) -> torch.Tensor:

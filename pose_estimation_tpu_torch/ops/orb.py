@@ -182,8 +182,7 @@ def ic_angle_sparse(stack: torch.Tensor, base: torch.Tensor, xy: torch.Tensor):
 
     cx = torch.round(xy[..., 0]).to(torch.int64).clamp(r_ + 1, w - 1 - r_)
     cy = torch.round(xy[..., 1]).to(torch.int64).clamp(r_, h - 1 - r_)
-    dys = torch.as_tensor(moments_mod.DYS, device=stack.device)
-    rs = torch.as_tensor(moments_mod.RS, device=stack.device)
+    dys, rs = moments_mod.circle_rows(stack.device)
     rows = base[:, None] + (cy[:, None] + dys[None, :]) * w     # [K, 31]
     hi = rows + cx[:, None] + rs[None, :]
     lo = rows + cx[:, None] - rs[None, :] - 1

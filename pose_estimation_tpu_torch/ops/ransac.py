@@ -19,6 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from pose_estimation_tpu_torch.utils.linalg import cho_solve
+
 N_HYPOTHESES = 64
 
 
@@ -84,12 +86,16 @@ def _null8(a):
     dtype = a.dtype
     row_avail = torch.ones((b, 8), dtype=dtype, device=a.device)
     col_avail = torch.ones((b, 9), dtype=dtype, device=a.device)
+    # one-hot rows by comparison: `one_hot` checks its classes on the host
+    # off the card
+    rows = torch.arange(8, device=a.device)
+    cols = torch.arange(9, device=a.device)
     pivots = []
     for _ in range(8):
         absm = m.abs() * row_avail[:, :, None] * col_avail[:, None, :]
         pidx = torch.argmax(absm.reshape(b, 72), dim=1)
-        prow_oh = torch.nn.functional.one_hot(pidx // 9, 8).to(dtype)
-        pcol_oh = torch.nn.functional.one_hot(pidx % 9, 9).to(dtype)
+        prow_oh = ((pidx // 9)[:, None] == rows).to(dtype)
+        pcol_oh = ((pidx % 9)[:, None] == cols).to(dtype)
         piv = torch.einsum("br,brc,bc->b", prow_oh, m, pcol_oh)
         safe = torch.where(piv.abs() < 1e-30, 1.0, piv)
         prow = torch.einsum("br,brc->bc", prow_oh, m) / safe[:, None]
@@ -114,7 +120,7 @@ def _null8(a):
     eye = torch.eye(9, dtype=dtype, device=a.device)
     h = ata + (1e-10 * tr)[:, None, None] * eye
     chol, info = torch.linalg.cholesky_ex(h)
-    w = torch.cholesky_solve(x[..., None], chol)[..., 0]
+    w = cho_solve(chol, x[..., None])[..., 0]
     wn = torch.linalg.norm(w, dim=-1, keepdim=True)
     ok = (torch.isfinite(w).all(dim=-1, keepdim=True) & (wn > 1e-30)
           & (info == 0)[:, None])
@@ -169,5 +175,7 @@ def fundamental_ransac(pts1, pts2, mask, u, threshold: float = 3.0) -> RansacRes
     d = _sampson_dist(f, pts1, pts2)
     inl = (d < threshold * threshold) & mask[None, :]
     counts = torch.sum(inl, dim=1)
-    best = torch.argmax(counts)
-    return RansacResult(inliers=inl[best], model=f[best], n_inliers=counts[best])
+    # a one-element index, not the 0-dim `best`: Python indexing would
+    # read that on the host
+    best = torch.argmax(counts).reshape(1)
+    return RansacResult(inliers=inl[best][0], model=f[best][0], n_inliers=counts[best][0])

@@ -10,7 +10,8 @@ independent keyframe decisions, pools and windows, and each draws its
 RANSAC uniforms from its own state machine's generator, so lane i of the
 batch continues as sequence i's own state machine would, up to the float32
 rounding of batched against single products (the extraction is equal bit
-for bit; the BA's sums may round apart).
+for bit; the BA's sums may round apart). The lock-step frames run as
+captured graphs (`graphs.BatchedGraphs`, one pair for the batch size).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pose_estimation_tpu_torch import graphs
 from pose_estimation_tpu_torch.models import vio as vio_mod
 from pose_estimation_tpu_torch.parallel import batched
 from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
@@ -38,11 +40,11 @@ class BatchedReplay:
     def __init__(self, cfg: VIOConfig, n: int, seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.n = n
+        self._graphs: graphs.BatchedGraphs | None = None
         self.slams = [VisualInertialSLAM(cfg, seed=seed + i, device=device)
                       for i in range(n)]
         self.device = self.slams[0].device
         self.consts, self.static = self.slams[0].consts, self.slams[0].static
-        self._step = batched.make_batched_step(self.consts, self.static)
         self.batched_state = None
         self.trajectories: list[list] = [[] for _ in range(n)]
 
@@ -67,8 +69,14 @@ class BatchedReplay:
 
         u = torch.stack([torch.stack(vio_mod.draw_ransac_uniforms(s._gen, dev))
                          for s in self.slams])
-        self.batched_state, metrics = self._step(
-            self.batched_state, t(imgs_l), t(imgs_r), t(gyrs), t(accs), t(masks), u)
+        inputs = (t(imgs_l), t(imgs_r), t(gyrs), t(accs), t(masks), u)
+        if self._graphs is None:
+            self._graphs = graphs.BatchedGraphs(self.batched_state, self.consts,
+                                                self.static, dev)
+        elif self.batched_state is not self._graphs.state:
+            self._graphs.load_state(self.batched_state)
+        metrics = graphs.snapshot(self._graphs.step(*inputs))
+        self.batched_state = self._graphs.state
         if timestamps is not None:
             p = metrics["rec_p"]
             for i, ts in enumerate(timestamps):

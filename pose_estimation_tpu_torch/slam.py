@@ -15,9 +15,22 @@ frame's metrics are also written as a JSON line (a host read per frame).
 host state a resumed run needs to continue identically, the random
 generator's state included.
 
+Every OK frame runs as captured CUDA graphs (`graphs.FrameGraphs`, the
+counterpart of the JAX package's jitted steps): the host copies the
+frame's images, IMU chunk and RANSAC uniforms into static buffers and
+replays, with the marginalization's PSD clip run eagerly between the
+frame's two graphs; the IMU chunks beyond one are integrated by a graph of
+their own. The live state is then the graphs' static buffers: an
+assignment of `self.vio` (a reinit, a recovery, `load_checkpoint`) is
+copied into them before the next replay, and what the host keeps across
+frames (records, the health check's pending frames, the keyframe history)
+is copied out of them (`graphs.snapshot`). On the CPU the same plumbing
+runs without capture. `graphed=False` runs the same steps eagerly, the
+yardstick the graphs are held to.
 `staged=True` runs the OK frame as the four stages of `models.vio`
-(`stage_imu`, `stage_frontend`, `stage_ba`, `stage_pool`), which a caller
-can time one by one; the fused `ok_step` is the same code in one call.
+(`stage_imu`, `stage_frontend`, `stage_ba`, `stage_pool`), each its own
+graph, which a caller can time one by one; the fused frame is the same
+code in two graphs.
 `set_viewer` attaches a live viewer (`live_viewer.LiveViewer`), fed after
 every OK frame (host reads of the window, and of the pool every
 `viewer_landmark_every` frames). `refresh_kf_hist` (off by default, as in
@@ -34,6 +47,7 @@ import numpy as np
 import torch
 
 from pose_estimation_tpu_torch import checkpoint as ckpt
+from pose_estimation_tpu_torch import graphs
 from pose_estimation_tpu_torch.backend import init_solvers
 from pose_estimation_tpu_torch.camera import CameraModel
 from pose_estimation_tpu_torch.imu import preintegration as pre
@@ -92,9 +106,14 @@ class VisualInertialSLAM:
     def __init__(self, cfg: VIOConfig, verbose: bool = False, seed: int = 0,
                  reinit_on_bias_corruption: bool = True, reinit_check_every: int = 8,
                  refine_sigmas: tuple[float, float] = (2.0, 2.0), device="cuda",
-                 metrics_jsonl: str | None = None, staged: bool = False):
+                 metrics_jsonl: str | None = None, staged: bool = False,
+                 graphed: bool = True):
         self.cfg = cfg
         self.verbose = verbose
+        # the OK-state steps as captured graphs (on the CPU the same static
+        # buffers without capture); False runs them eagerly
+        self.graphed = graphed
+        self._graphs: graphs.FrameGraphs | None = None
         # the OK frame as four calls (stage by stage timing) instead of the
         # fused ok_step; both run the same stages
         self.staged = staged
@@ -226,7 +245,24 @@ class VisualInertialSLAM:
             chunks.append(tuple(torch.from_numpy(a).to(self.device) for a in (gyr, acc, mask)))
         return chunks
 
+    def _frame_graphs(self) -> graphs.FrameGraphs:
+        """The graphs of the current configuration (made at first use, and
+        again after `self.static` or `self.consts` is replaced), holding the
+        current state."""
+        g = self._graphs
+        if g is None or g.static is not self.static or g.consts is not self.consts:
+            g = self._graphs = graphs.FrameGraphs(self.vio, self.consts, self.static,
+                                                  self.device)
+        elif self.vio is not g.state:
+            g.load_state(self.vio)
+        return g
+
     def _integrate(self, gyr, acc, mask):
+        if self.graphed:
+            g = self._frame_graphs()
+            g.integrate(gyr, acc, mask)
+            self.vio = g.state
+            return
         self.vio = self.vio._replace(preint=pre.integrate_chunk(
             self.vio.preint, gyr, acc, mask, self.vio.bg, self.vio.ba, self.consts.imu))
 
@@ -308,12 +344,18 @@ class VisualInertialSLAM:
                 if self.verbose:
                     print("[slam] warning: no IMU samples for frame; skipping")
                 return False
-            if self.staged:
-                metrics = self._staged_step(img_l, img_r, gyr, acc, mask)
+            ransac_u = vio_mod.draw_ransac_uniforms(self._gen, self.device)
+            if self.graphed:
+                g = self._frame_graphs()
+                run = g.staged_step if self.staged else g.ok_step
+                metrics = graphs.snapshot(run(img_l, img_r, gyr, acc, mask, ransac_u))
+                self.vio = g.state
+            elif self.staged:
+                metrics = self._staged_step(img_l, img_r, gyr, acc, mask, ransac_u)
             else:
                 self.vio, metrics = vio_mod.ok_step(
-                    self.vio, img_l, img_r, gyr, acc, mask, self._gen, self.consts,
-                    self.static)
+                    self.vio, img_l, img_r, gyr, acc, mask, None, self.consts,
+                    self.static, ransac_u=ransac_u)
             self._record(img_ts, metrics)
             if self.verbose:
                 print(f"[slam] ts={img_ts} stereo={int(metrics['n_stereo'])} "
@@ -331,13 +373,7 @@ class VisualInertialSLAM:
                 self._push_viewer(metrics)
             # device scalars wait here and are read in one transfer every
             # reinit_check_every frames; the streaks still advance per frame
-            if "rec_R" in metrics:
-                snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"],
-                        metrics["rec_ic"])
-            else:
-                win = self.vio.win
-                snap = (win.R[-1], win.p[-1], win.v[-1],
-                        ImuConstraint(*(a[-1] for a in win.ics)))
+            snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"], metrics["rec_ic"])
             self._pending_health.append((
                 metrics["n_tracked"], metrics["need_reinit"], metrics["is_keyframe"], snap))
             if self._frame_count % self.reinit_check_every == 0:
@@ -346,17 +382,16 @@ class VisualInertialSLAM:
 
         return True  # LOST: relocalization is future work, as in the reference
 
-    def _staged_step(self, img_l, img_r, gyr, acc, mask) -> dict:
-        """The OK frame as four calls; returns the frame's metrics (without
-        the record bundle of the fused step)."""
+    def _staged_step(self, img_l, img_r, gyr, acc, mask, ransac_u) -> dict:
+        """The OK frame as four eager calls; returns the frame's metrics
+        (`models.vio.frame_outputs`)."""
         c, s = self.consts, self.static
-        ransac_u = vio_mod.draw_ransac_uniforms(self._gen, self.device)
         self.vio, imu_dt = vio_mod.stage_imu(self.vio, gyr, acc, mask, c, s)
         p_pred = self.vio.win.p[-1]
         self.vio, cur, tr = vio_mod.stage_frontend(self.vio, img_l, img_r, ransac_u, c, s)
         self.vio, ba_cost, ba_iters = vio_mod.stage_ba(self.vio, tr.n_matches, c, s)
         self.vio = vio_mod.stage_pool(self.vio, cur, tr, tr.n_matches, c, s)
-        return vio_mod.frame_metrics(self.vio, cur, tr, ba_cost, ba_iters, imu_dt, p_pred)
+        return vio_mod.frame_outputs(self.vio, cur, tr, ba_cost, ba_iters, imu_dt, p_pred)
 
     def set_viewer(self, viewer):
         """Attach a live viewer (`live_viewer.LiveViewer`, or anything with
@@ -463,8 +498,11 @@ class VisualInertialSLAM:
         pb = Ra @ p + pa
         self._sfm_R.append(Rb @ r_cb)
         self._sfm_p.append(Rb @ p_cb + pb)
-        self._sfm_ics.append(pre.finalize(self.vio.preint, self.vio.bg, self.vio.ba,
-                                          self.consts.imu))
+        # a copy: the constraint shares tensors with the running
+        # preintegration, which the next chunk overwrites in the graphs'
+        # buffers
+        self._sfm_ics.append(graphs.snapshot(pre.finalize(
+            self.vio.preint, self.vio.bg, self.vio.ba, self.consts.imu)))
 
     def _initialize(self, img_l, img_r, img_ts):
         """The 4-stage initializer, its plausibility gates, the window
@@ -556,7 +594,8 @@ class VisualInertialSLAM:
             if slot < max(length - 1 - n_act, 0):
                 break   # left the active window: the entry is final
             ic = self._kf_hist[-m][3]
-            self._kf_hist[-m] = (win.R[slot], win.p[slot], win.v[slot], ic)
+            self._kf_hist[-m] = (*graphs.snapshot((win.R[slot], win.p[slot], win.v[slot])),
+                                 ic)
 
     def _refine_gravity(self):
         """Routine refinement: re-solve gravity tilt and acc bias over the
@@ -645,7 +684,8 @@ class VisualInertialSLAM:
         win = self.vio.win
         self._sfm_R = list(win.R[1:w + 1].cpu().numpy())
         self._sfm_p = list(win.p[1:w + 1].cpu().numpy())
-        self._sfm_ics = [ImuConstraint(*(a[i] for a in win.ics)) for i in range(1, w)]
+        self._sfm_ics = [ImuConstraint(*(a[i] for a in graphs.snapshot(win.ics)))
+                         for i in range(1, w)]
         zero3 = torch.zeros(3, device=self.device)
         self.vio = self.vio._replace(bg=zero3, ba=zero3.clone(),
                                      preint=pre.init_state(self.device))
@@ -713,18 +753,17 @@ class VisualInertialSLAM:
     # ---- results
 
     def _record(self, img_ts: int, metrics: dict | None = None):
-        """Keep the frame's (quat, p, v, bg, ba) as device tensors, from the
-        fused step's record bundle where given, else from the window; they
-        are read in save_results / trajectory."""
-        if metrics is not None and "rec_quat" in metrics:
+        """Keep the frame's (quat, p, v, bg, ba) as device tensors, from an
+        OK frame's record bundle where given, else copied from the window;
+        they are read in save_results / trajectory."""
+        if metrics is not None:
             self._records.append((img_ts, metrics["rec_quat"], metrics["rec_p"],
                                   metrics["rec_v"], metrics["rec_bg"], metrics["rec_ba"]))
             return
         win = self.vio.win
-        self._records.append((
-            img_ts, lie.mat_to_quat(win.R[-1]), win.p[-1], win.v[-1],
-            win.ics.bg_i[-1] + win.dbg[-1], win.ics.ba_i[-1] + win.dba[-1],
-        ))
+        self._records.append((img_ts, *graphs.snapshot((
+            lie.mat_to_quat(win.R[-1]), win.p[-1], win.v[-1],
+            win.ics.bg_i[-1] + win.dbg[-1], win.ics.ba_i[-1] + win.dba[-1]))))
 
     def _host_records(self):
         """[(ts, q, p, v, bg, ba)] with numpy leaves, in one transfer."""

@@ -12,10 +12,16 @@ from __future__ import annotations
 import torch
 
 
-def apply_policy() -> None:
-    """Full-f32 matmuls and convolutions; raises if the process asked for less."""
+def apply_policy(device=None) -> None:
+    """Full-f32 matmuls and convolutions; raises if the process asked for
+    less. On a CUDA `device`, linear algebra on cuSOLVER and cuBLAS: for
+    some batched shapes PyTorch picks MAGMA, whose paths read pivots and
+    error codes on the host, which a captured CUDA graph cannot do
+    (`graphs.py`) and which costs a host sync eagerly."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if device is not None and torch.device(device).type == "cuda":
+        torch.backends.cuda.preferred_linalg_library("cusolver")
     if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
             "float32 matmul precision is "

@@ -19,9 +19,12 @@ def tree_map(fn, *trees):
 
 
 def tree_leaves(tree) -> list:
-    """The tensors of nested (named) tuples, depth first in field order."""
+    """The tensors of nested (named) tuples or dicts, depth first in field
+    order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
     return [leaf for sub in tree for leaf in tree_leaves(sub)]
 
 

@@ -58,14 +58,15 @@ def test_staged_state_machine_equals_fused():
     """320x240, 4 levels, 1.6 s with IMU noise: the staged and the fused
     state machines (the same seed) reach OK and end with equal device
     state, keyframe history, generator state and recorded poses, bit for
-    bit. The fused one calls `ok_step` once per OK frame; the staged one
-    calls the stages instead (`stage_ba` runs inside `ok_step` too)."""
+    bit. The fused one runs `ok_head` (and then `track_tail`) once per OK
+    frame; the staged one calls the stages instead (`stage_ba_solve` runs
+    inside `ok_head` too)."""
     cfg = testing.sim_config(keyframe_rotation=0.1, keyframe_translation=0.15)
     fused = VisualInertialSLAM(cfg, device="cpu")
     staged = VisualInertialSLAM(cfg, device="cpu", staged=True)
     world = testing.StereoInertialSim(cfg, n_landmarks=150, seed=0)
-    with mock.patch.object(tvio, "ok_step", wraps=tvio.ok_step) as ok, \
-            mock.patch.object(tvio, "stage_ba", wraps=tvio.stage_ba) as ba:
+    with mock.patch.object(tvio, "ok_head", wraps=tvio.ok_head) as ok, \
+            mock.patch.object(tvio, "stage_ba_solve", wraps=tvio.stage_ba_solve) as ba:
         world.run(_Both(fused, staged), duration=1.6, imu_noise=2.4e-3, seed=10)
     assert fused.state == staged.state == State.OK
     n_ok = fused._frame_count
