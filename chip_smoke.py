@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
+It builds the six CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
 checks each against its torch twin at the shapes the main paths give it,
 timing each by CUDA events and by the profiler's device time: K1 (FAST
 select) at EuRoC scale (752x480 stereo, 8 levels, 800 features) and on the
@@ -15,9 +15,15 @@ there and at KITTI width, K3 (FAST score + NMS) at KITTI width (1242x375,
 8 levels), K4 (circular moment maps) on both plane stacks, also against
 the 31x31 convolution that computes the same maps and beside its own count
 of shared-memory traffic, with the map front end's sparse and integral
-angles held to the float64 ones, and K5 (stream probe) over its sweep of
-plane counts, heights and element types. Then it drives, each with the
-kernel counts set to 0 just before and read just after:
+angles held to the float64 ones, K5 (stream probe) over its sweep of
+plane counts, heights and element types, and K6 (Jacobi eigh and 3x3 SVD,
+`ops/small_linalg.py`) at every shape of its paths (the PnP solvers'
+[512, 12, 12] and [512, 3, 3] in float32, the PSD clip's [1, 45, 45] and
+[8, 45, 45] in float64, the proper rotations' [512, 3, 3] SVD; the DLT's
+null vector against float64), beside `torch.linalg.eigh` and `svd`. It runs the eager `ok_step`, `sfm_step`
+(each PnP solver), `bootstrap_frame`, `full_init` and `refine_gravity`
+once each under `torch.cuda.set_sync_debug_mode("error")`. Then it drives,
+each with the kernel counts set to 0 just before and read just after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
   the true pose: finite state, non-negative BA cost, tracking and BA alive
@@ -36,17 +42,22 @@ kernel counts set to 0 just before and read just after:
   a graph replay against their twins on another frame's stack than the
   capture's; phase 4's chain eager and graphed in turns, every frame's
   metrics and the final state bit-equal, on the kernel path and on the
-  map front end with K4; the staged graphs, `ok_scan`'s replays and the
-  batched step of 8 lanes, each bit-equal to its eager run; each path's
-  launches as replays x the graph's; each graph's capture and instantiate
-  seconds, nodes and pool bytes, the eager PSD clip's cost and the busy
+  map front end with K4; the staged graphs, `ok_scan` as one graph and
+  the batched step of 8 lanes, each bit-equal to its eager run; one
+  replay a fused frame, an `ok_scan` and a batched step, four a staged
+  frame; each path's launches as replays x the graph's; each graph's
+  capture and instantiate seconds, nodes and pool bytes and the busy
   share of graphed frames;
 - the host state machine (`slam.VisualInertialSLAM`, its OK frames as
   graphs) at KITTI width over a 6-s noisy simulation with the kitti
   profile: it must reach OK, launch K3 and K2 equally and K1 never in
-  every OK frame, keep the BA cost >= 0, the state finite and the
-  aligned error under 2 x distance + 1 m, and equal, bit for bit, the same
-  run with `graphed=False`;
+  every OK frame, K6 in its SfM frames and clips, replay one graph an OK
+  frame and one graph a solve after the first call of its shapes, which
+  runs eagerly (extraction of the reference image, SfM frame, SfM
+  constraint, initializer, bootstrap frame, gravity refinement, warm
+  recovery), keep the BA cost >= 0, the state finite
+  and the aligned error under 2 x distance + 1 m, and equal, bit for bit,
+  the same run with `graphed=False`;
 - the accuracy protocol of `benchmarks/chip_accuracy.py` through the port
   (family A worlds 0-2 for 6 s, family B worlds 0-1 for 12 s; gates ATE
   < 4 % of path, |ba| < 1.5, |bg| < 0.01), its runs spread over worker
@@ -122,6 +133,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -250,6 +262,41 @@ PROTOCOL_WORKERS = 4
 # a second (132 SMs x 128 float32 lanes x 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
+# float64 outside the tensor cores: the data sheet's 34 TFLOP/s, a fused
+# multiply-add counted as two operations (132 SMs x 64 float64 lanes x
+# 1.98 GHz instructions a second)
+FP64_INSTR_PER_S = 34e12 / 2
+# Phase 3b, K6 (ops/small_linalg.py) at the shapes of the paths: (label,
+# matrices, n, dtype); the PnP solvers' [512, ...] in float32 (the graded
+# stop), the PSD clip of one frame's and of BATCH lanes' Schur complements
+# in float64 (the stop at eps ||A||_F, as `ba.psd_clip` calls it). Each
+# eigenvalue within K6_TOL[dtype] x ||A||_F of the twin's; the residual
+# ||A V - V diag(w)||_F and ||V^T V - I||_max within K6_RES_TOL[dtype]
+# (x ||A||_F for the residual); the clip (float64) within 1e-12 x ||S||_F
+# of the twin's; the SVD's ||U S Vh - A|| within K6_TOL x ||A||_F. The
+# DLT's null vector, on normal matrices of 6 projected points each (the
+# simulator's landmark box, small motions, 1e-3 image noise), against
+# float64 `torch.linalg.eigh` of the same float32 matrices: the sine of
+# the angle within K6_NULL_TOL x eps32 ||A||_2 / (l2 - l1), the Davis-Kahan
+# bound of a backward error of that size; the bound is one the twin meets
+# (on an H100 the twin, cuSOLVER's float32 eigh, read up to 8.72 on these
+# 512 matrices and K6 0.105).
+K6_EIGH_SHAPES = (("dlt", 512, 12, "float32"), ("epnp_axes", 512, 3, "float32"),
+                  ("epnp", 512, 12, "float32"), ("clip", 1, 45, "float64"),
+                  ("clip_batched", 8, 45, "float64"))
+K6_TOL = {"float32": 1e-5, "float64": 1e-12}
+K6_NULL_TOL = 16.0
+K6_RES_TOL = {"float32": 1e-4, "float64": 1e-11}
+# operations of a symmetric eigendecomposition with its vectors, and of an
+# SVD with U and V, in the least form known (Golub and Van Loan, Matrix
+# Computations, 4th ed., Fig. 8.6.1: 9 n^3 flops for the symmetric QR
+# algorithm with V; 4 m^2 n + 8 m n^2 + 9 n^3 for the R-SVD with U and V),
+# as multiply-add instructions (half the flops)
+def eigh_instr(n):
+    return 9 * n ** 3 / 2
+
+
+SVD3_INSTR = (4 * 27 + 8 * 27 + 9 * 27) / 2
 # float32 instructions per pixel of the FAST-9 score and 3x3 NMS, counted
 # in the least form known (csrc/fast_common.cuh): 16 ring differences, for
 # each polarity the 8 two-, four- and eight-long window extrema that the 16
@@ -288,8 +335,7 @@ STAGED_TOL_P = 1e-5
 SCAN_FRAMES = 8
 STAGES = ("stage_imu", "stage_frontend", "stage_ba", "stage_pool")
 # the staged frame's captured graphs (graphs.FrameGraphs.staged_step) by stage
-GRAPH_STAGES = {"imu": "imu", "frontend": "frontend", "ba.head": "ba", "ba.tail": "ba",
-                "pool": "pool"}
+GRAPH_STAGES = {"imu": "imu", "frontend": "frontend", "ba": "ba", "pool": "pool"}
 # Phase 11, the mesh dry run (parallel/multihost.py): MESH_RANKS processes
 # share the card over gloo as a (data MESH_RANKS / MESH_MODEL, model
 # MESH_MODEL) grid, MESH_LANES lanes a data rank, at phase 4's EuRoC-width
@@ -354,11 +400,12 @@ def device_activity(prof) -> dict:
             "annotation_ms": sum(e.device_time for e in on_card if annotation(e)) / 1e3}
 
 
-def bound(n_bytes: float, n_instr: float):
+def bound(n_bytes: float, n_instr: float, instr_per_s: float = FP32_INSTR_PER_S):
     """(least time in ms, "bytes" or "operations") for `n_bytes` of HBM
-    traffic and `n_instr` float32 instructions."""
+    traffic and `n_instr` instructions (float32 unless `instr_per_s` says
+    otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_instr / FP32_INSTR_PER_S * 1e3
+    t_ops = n_instr / instr_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -373,11 +420,71 @@ def kitti_config(**extra):
 
 def wrappers() -> dict:
     """The kernels' wrappers by name; each counts its launches."""
-    from pose_estimation_tpu_torch.ops import fast, moments, probe, sample
+    from pose_estimation_tpu_torch.ops import fast, moments, probe, sample, small_linalg
 
     return {"fast_select": fast.fast_select, "sample_patches": sample.sample_patches,
             "fast_score_nms": fast.fast_score_nms, "moment_maps": moments.moment_maps,
-            "stream_probe": probe.stream_probe}
+            "stream_probe": probe.stream_probe, "eigh": small_linalg.eigh,
+            "svd": small_linalg.svd}
+
+
+# the extraction kernels (the others, K5 and K6, run on other paths)
+EXTRACTION = ("fast_select", "sample_patches", "fast_score_nms", "moment_maps")
+# every CUDA graph replay of the process (`count_replays`)
+REPLAYS = {"n": 0}
+
+
+def count_replays() -> None:
+    """Count every `torch.cuda.CUDAGraph.replay` in REPLAYS."""
+    import torch
+
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        REPLAYS["n"] += 1
+        return replay(self)
+
+    torch.cuda.CUDAGraph.replay = counted
+
+
+@contextlib.contextmanager
+def counted_solves():
+    """While the block runs, count the calls of `graphs.SolveGraphs.run` by
+    name and the graph replays they ran. Yields a dict, filled at the end
+    with {name: [calls, eager calls, replays]}: the first call of a name and
+    input shapes runs eagerly (no replay), every later one is one replay."""
+    from pose_estimation_tpu_torch import graphs
+
+    run, got = graphs.SolveGraphs.run, {}
+
+    def counted(self, name, fn, *args):
+        before = REPLAYS["n"]
+        first = self.key(name, args) not in self.calls
+        out = run(self, name, fn, *args)
+        calls = got.setdefault(name, [0, 0, 0])
+        calls[0] += 1
+        calls[1] += first
+        calls[2] += REPLAYS["n"] - before
+        return out
+
+    graphs.SolveGraphs.run = counted
+    try:
+        yield got
+    finally:
+        graphs.SolveGraphs.run = run
+    if any(c - e != r for c, e, r in got.values()):
+        fail(f"state machine solves: calls, eager first calls and replays by name {got} (one "
+             "replay a call after the first of its shapes)")
+
+
+def check_frame_replays(label, frames, per_frame=1) -> None:
+    """Every graphed OK frame that ran the step alone, or with a health
+    check that ran nothing more (marks "" and "H"), replayed `per_frame`
+    graphs: the fused frame is one graph, the staged frame four."""
+    bad = [(i, f["replays"]) for i, f in enumerate(frames)
+           if f["events"] in ("", "H") and f["replays"] != per_frame]
+    if bad:
+        fail(f"{label}: OK frames (index, replays) {bad[:8]}, expected {per_frame} replays")
 
 
 def counters() -> dict:
@@ -402,25 +509,27 @@ def zero_counters() -> None:
 @contextlib.contextmanager
 def count_prior_clip():
     """Count, over the block, how often `ba.psd_clip` clips a Schur
-    complement of the marginalization: torch.linalg.eigh is wrapped while
-    psd_clip runs (eagerly, between a graphed frame's two graphs, or in an
-    eager frame), and the ratio of the smallest to the largest eigenvalue
-    of each matrix stays on the device until the block ends. The frame
-    step computes the marginalization on every frame and keeps it on a
-    keyframe of a full window only; on the other frames it passes the
-    identity, whose Schur complement is a multiple of the identity, and
-    those are not counted. Yields a dict that is then filled with the
-    marginalizations, those with a negative eigenvalue (where the clip
-    fires) and the most negative ratio."""
+    complement of the marginalization in eager frames (in a graphed frame
+    the clip runs inside the frame's graph, out of Python's sight): K6's
+    `eigh` is wrapped while psd_clip runs, and the ratio of the smallest to
+    the largest eigenvalue of each matrix stays on the device until the
+    block ends. The frame step computes the marginalization on every frame
+    and keeps it on a keyframe of a full window only; on the other frames
+    it passes the identity, whose Schur complement is a multiple of the
+    identity, and those are not counted. Yields a dict that is then filled
+    with the marginalizations, those with a negative eigenvalue (where the
+    clip fires) and the most negative ratio."""
     import torch
 
     from pose_estimation_tpu_torch.backend import ba as ba_mod
+    from pose_estimation_tpu_torch.ops import small_linalg
 
-    clip, eigh = ba_mod.psd_clip, torch.linalg.eigh
+    clip, eigh = ba_mod.psd_clip, small_linalg.eigh
     ratios, kept, stats = [], [], {}
+    # the clip's own view of K6 (the wrapper's counter stays its own)
 
-    def recording_eigh(a, *args, **kwargs):
-        evals, evecs = eigh(a, *args, **kwargs)
+    def recording_eigh(a, **kw):
+        evals, evecs = eigh(a, **kw)
         ratios.append((evals[..., 0] / torch.clamp(evals[..., -1].abs(), min=1e-300))
                       .reshape(-1))
         return evals, evecs
@@ -428,11 +537,11 @@ def count_prior_clip():
     def counted_clip(schur):
         eye = torch.eye(schur.shape[-1], dtype=schur.dtype, device=schur.device)
         kept.append((schur != schur[..., :1, :1] * eye).flatten(-2).any(-1).reshape(-1))
-        torch.linalg.eigh = recording_eigh
+        ba_mod.small_linalg = types.SimpleNamespace(eigh=recording_eigh)
         try:
             return clip(schur)
         finally:
-            torch.linalg.eigh = eigh
+            ba_mod.small_linalg = small_linalg
 
     ba_mod.psd_clip = counted_clip
     try:
@@ -459,8 +568,7 @@ def timed_stages(graphed=False):
     `profiling.StageTimers` under its name without "stage_". Eager: each of
     `models.vio`'s four stages (the staged state machine calls them through
     the module). `graphed`: each replay of a staged graph
-    (`GRAPH_STAGES`; the BA stage's two graphs and the eager clip between
-    them add to one "ba" call), captures left out."""
+    (`GRAPH_STAGES`), captures left out."""
     import torch
 
     from pose_estimation_tpu_torch import graphs
@@ -469,12 +577,7 @@ def timed_stages(graphed=False):
 
     timers = StageTimers()
     if graphed:
-        call, clip = graphs.CapturedStep.__call__, graphs._Graphs.clip
-
-        def add(stage, t0, counted):
-            torch.cuda.synchronize()
-            timers.total[stage] += time.perf_counter() - t0
-            timers.count[stage] += counted
+        call = graphs.CapturedStep.__call__
 
         def timed_call(self):
             stage = GRAPH_STAGES.get(self.name)
@@ -483,22 +586,16 @@ def timed_stages(graphed=False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = call(self)
-            add(stage, t0, self.name != "ba.tail")
+            torch.cuda.synchronize()
+            timers.total[stage] += time.perf_counter() - t0
+            timers.count[stage] += 1
             return out
 
-        def timed_clip(self, name, schur):
-            if name != "ba":
-                return clip(self, name, schur)
-            t0 = time.perf_counter()
-            out = clip(self, name, schur)
-            add("ba", t0, False)
-            return out
-
-        graphs.CapturedStep.__call__, graphs._Graphs.clip = timed_call, timed_clip
+        graphs.CapturedStep.__call__ = timed_call
         try:
             yield timers
         finally:
-            graphs.CapturedStep.__call__, graphs._Graphs.clip = call, clip
+            graphs.CapturedStep.__call__ = call
         return
     saved = {name: getattr(vio, name) for name in STAGES}
 
@@ -541,6 +638,7 @@ def staged_checks(dev, consts, static, inputs, truth) -> dict:
     for i in range(WARMUP):
         start, _ = vio.ok_step(start, *inputs[i], gen, consts, static)
     frames = list(range(WARMUP, N_FRAMES))
+    gen_at_us = gen.get_state()
     us = [vio.draw_ransac_uniforms(gen, dev) for _ in frames]
 
     torch.cuda.synchronize()
@@ -561,9 +659,10 @@ def staged_checks(dev, consts, static, inputs, truth) -> dict:
         staged_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
     staged_launches = counters()
     split = stage_split(timers)
-    if any((n["fast_select"], n["sample_patches"], n["fast_score_nms"]) != (1, 1, 0)
-           for n in per_frame):
-        fail(f"staged path: launches per frame {per_frame} (K1 and K2 once, K3 never)")
+    if any((n["fast_select"], n["sample_patches"], n["fast_score_nms"], n["eigh"])
+           != (1, 1, 0, 1) for n in per_frame):
+        fail(f"staged path: launches per frame {per_frame} (K1, K2 and the clip's K6 once, "
+             "K3 never)")
 
     zero_counters()
     fused, chain = start, []
@@ -615,18 +714,49 @@ def staged_checks(dev, consts, static, inputs, truth) -> dict:
     print(f"ok_scan ({SCAN_FRAMES} chained frames): bit-equal to {SCAN_FRAMES} ok_step "
           f"calls with the same uniforms; {scan_ms:.2f} ms per frame; tracked "
           f"{outs['n_tracked'].tolist()}; launches {scan_launches}")
+
+    # ok_scan as one graph of SCAN_FRAMES frames, the uniforms drawn from a
+    # generator in the state that drew `us`
+    from pose_estimation_tpu_torch import graphs
+
+    runner = graphs.FrameGraphs(start, consts, static, dev)
+    sgen = torch.Generator(device=dev)
+    sgen.set_state(gen_at_us)
+    zero_counters()
+    before = REPLAYS["n"]
+    g_outs = graphs.snapshot(runner.ok_scan(*stacked, sgen))
+    torch.cuda.synchronize()
+    g_scan_launches, g_replays = counters(), REPLAYS["n"] - before
+    g_equal = (all(torch.equal(a, b) for a, b in zip(tree_leaves(runner.state),
+                                                      tree_leaves(ref)))
+               and all(torch.equal(g_outs["p"][k], chain[k].win.p[-1])
+                       for k in range(SCAN_FRAMES)))
+    scan_graph = runner.stats()["scan"]
+    print(f"ok_scan as one graph ({SCAN_FRAMES} frames): " + ("bit-equal" if g_equal
+                                                              else "DIFFERS")
+          + f" to {SCAN_FRAMES} ok_step calls; {g_replays} replay; graph "
+          + graph_line("scan", scan_graph) + f"; launches {g_scan_launches} (with the warm-up)")
+    if not g_equal:
+        fail(f"graphed ok_scan over {SCAN_FRAMES} frames differs from {SCAN_FRAMES} ok_step calls")
+    if g_replays != 1 or (g_scan_launches["fast_select"], g_scan_launches["eigh"]) \
+            != (2 * SCAN_FRAMES,) * 2:
+        fail(f"graphed ok_scan: {g_replays} replays, launches {g_scan_launches} (one replay; "
+             f"K1 and K6 {SCAN_FRAMES} times in it and in the warm-up)")
+    del runner
     return {"frames": len(frames), "stage_ms": split, "stage_sum_ms": sum(split.values()),
             "staged_ms_per_frame": staged_ms, "fused_ms_per_frame": fused_ms,
             "bit_equal": bit_equal, "p_diff_m": p_diff, "launches": staged_launches,
             "launches_per_frame": per_frame[0], "scan_ms_per_frame": scan_ms,
-            "scan_launches": scan_launches}
+            "scan_launches": scan_launches, "scan_graph": scan_graph}
 
 
 def graph_line(name, g) -> str:
     """One captured graph's numbers (`graphs.CapturedStep.stats`) as text."""
     if "nodes" not in g:
-        return f"{name} (not captured: {g['replays']} calls)"
-    return (f"{name} {g['nodes']} nodes, capture {g['capture_s']:.3f} s, instantiate "
+        return (f"{name} (eager once, not captured)" if g.get("eager")
+                else f"{name} (not captured: {g['replays']} calls)")
+    return (f"{name} {'eager once, then ' if g.get('eager') else ''}{g['nodes']} nodes, "
+            f"capture {g['capture_s']:.3f} s, instantiate "
             f"{g['instantiate_s']:.3f} s, pool {g['pool_bytes'] / 2**20:.1f} MiB, launches "
             f"{g['launches']}, {g['replays']} replays")
 
@@ -640,11 +770,12 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     the kernel path and on the map front end with K4; the staged graphs
     and `ok_scan`'s replays from the chain's state after the warm-up
     against the fused eager frames; the batched step of BATCH lanes
-    graphed against eager over BATCH_FRAMES frames; each path's launches
-    as replays x the graph's launches; each graph's capture and
-    instantiate seconds, nodes and pool bytes; the eager PSD clip's cost;
-    the device's busy share in graphed frames by the profiler. Returns the
-    phase's numbers."""
+    graphed against eager over BATCH_FRAMES frames; one replay a fused
+    frame, a batched step and an `ok_scan`, four a staged frame; each
+    path's launches as replays x the graph's launches; each graph's
+    capture and instantiate seconds, nodes and pool bytes; the device's
+    busy share in graphed frames by the profiler. Returns the phase's
+    numbers."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -726,6 +857,7 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
         metrics, start = [], None
         torch.cuda.synchronize()
         zero_counters()
+        replays = REPLAYS["n"]
         t0 = time.perf_counter()
         for i in range(N_FRAMES):
             if i == WARMUP:
@@ -741,6 +873,9 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
             metrics.append(m)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
+        if runner is not None and REPLAYS["n"] - replays != N_FRAMES:
+            fail(f"graphed ok_step chain ({label}): {REPLAYS['n'] - replays} replays in "
+                 f"{N_FRAMES} frames (one a frame)")
         return start, graphs.snapshot(state), metrics, ms, counters()
 
     runs, runner = {}, None
@@ -761,11 +896,13 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     if not all(same):
         fail(f"graphed ok_step chain differs from the eager one (eager repeat, graphed "
              f"runs: {same})")
-    # K1 and K2 once a replayed frame, and once in the warm-up of a new runner
+    # K1, K2 and the clip's K6 once a replayed frame, and once in the
+    # warm-up of a new runner
     for r, n in ((g1, N_FRAMES + 1), (g2, N_FRAMES)):
-        if (r[4]["fast_select"], r[4]["sample_patches"]) != (n, n) \
-                or r[4]["fast_score_nms"] or r[4]["moment_maps"]:
-            fail(f"graphed ok_step chain: launches {r[4]}, expected K1 and K2 {n} times")
+        if (r[4]["fast_select"], r[4]["sample_patches"], r[4]["eigh"]) != (n, n, n) \
+                or r[4]["fast_score_nms"] or r[4]["moment_maps"] or r[4]["svd"]:
+            fail(f"graphed ok_step chain: launches {r[4]}, expected K1, K2 and K6's eigh "
+                 f"{n} times")
     fused_stats = runner.stats()
     out["chain"] = {"ms_per_frame": {"eager": [e_ms, e2[3]], "graphed": [g1[3], g2[3]]},
                     "launches": g2[4], "graphs": fused_stats}
@@ -784,10 +921,10 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
           + f"; graphed launches {mg_l}")
     if not map_same:
         fail("graphed ok_step chain on the map front end differs from the eager one")
-    if (mg_l["fast_select"], mg_l["moment_maps"]) != (N_FRAMES + 1,) * 2 \
+    if (mg_l["fast_select"], mg_l["moment_maps"], mg_l["eigh"]) != (N_FRAMES + 1,) * 3 \
             or mg_l["sample_patches"] or mg_l["fast_score_nms"]:
-        fail(f"graphed map front end: launches {mg_l}, expected K1 and K4 {N_FRAMES + 1} "
-             "times (the replays and the warm-up)")
+        fail(f"graphed map front end: launches {mg_l}, expected K1, K4 and K6's eigh "
+             f"{N_FRAMES + 1} times (the replays and the warm-up)")
     out["map_chain"] = {"ms_per_frame": {"eager": me_ms, "graphed": mg_ms}, "launches": mg_l,
                         "graphs": map_runner.stats()}
     del map_runner
@@ -803,8 +940,12 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
         ref_m.append(m)
     staged = graphs.FrameGraphs(start, consts, static, dev)
     zero_counters()
+    st_m, st_replays = [], []
     with timed_stages(graphed=True) as timers:
-        st_m = [graphs.snapshot(staged.staged_step(*inputs[i], u)) for u, i in zip(us, frames_s)]
+        for u, i in zip(us, frames_s):
+            before = REPLAYS["n"]
+            st_m.append(graphs.snapshot(staged.staged_step(*inputs[i], u)))
+            st_replays.append(REPLAYS["n"] - before)
     st_launches = counters()
     split = {k: timers.total[k] * 1e3 / max(timers.count[k], 1) for k in ("imu", "frontend", "ba",
                                                                    "pool")}
@@ -817,13 +958,15 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
           + f"; launches {st_launches}")
     if not staged_same:
         fail("staged graphs differ from the fused eager frames")
+    if any(n != 4 for n in st_replays):
+        fail(f"staged graphs: replays per frame {st_replays} (four, one a stage)")
     if (st_launches["fast_select"], st_launches["sample_patches"]) != (len(frames_s) + 1,) * 2:
         fail(f"staged graphs: launches {st_launches}, expected K1 and K2 {len(frames_s) + 1} "
              "times (the replays and the warm-up)")
     out["staged"] = {"stage_ms": split, "launches": st_launches, "graphs": staged.stats()}
     del staged
 
-    # ok_scan as replays of the fused frame's graphs
+    # ok_scan as one graph of SCAN_FRAMES frames
     sel_f = frames_s[:SCAN_FRAMES]
     stacked = [torch.stack([inputs[i][k] for i in sel_f]) for k in range(5)]
     e_scan_state, e_outs = vio.ok_scan(start, *stacked,
@@ -833,32 +976,36 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    before = REPLAYS["n"]
     g_outs = runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
     scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
-    scan_launches = counters()
+    scan_launches, scan_replays = counters(), REPLAYS["n"] - before
     scan_same = equal(e_scan_state, runner.state) and equal(e_outs, g_outs)
-    print(f"ok_scan as {SCAN_FRAMES} replays of the fused graphs: "
+    t0 = time.perf_counter()
+    runner.load_state(start)
+    runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    scan_replay_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
+    print(f"ok_scan as one graph of {SCAN_FRAMES} frames: "
           + ("bit-equal to the eager ok_scan" if scan_same else "DIFFERS")
-          + f"; {scan_ms:.2f} ms a frame; launches {scan_launches}")
+          + f"; {scan_replays} replay; {scan_ms:.2f} ms a frame with the warm-up and capture, "
+          f"{scan_replay_ms:.2f} replayed; launches {scan_launches}; graph "
+          + graph_line("scan", runner.stats()["scan"]))
     if not scan_same:
         fail("graphed ok_scan differs from the eager ok_scan")
-    if (scan_launches["fast_select"], scan_launches["sample_patches"]) != (SCAN_FRAMES,) * 2:
-        fail(f"graphed ok_scan: launches {scan_launches} in {SCAN_FRAMES} frames")
-    out["ok_scan"] = {"ms_per_frame": scan_ms, "launches": scan_launches}
+    if scan_replays != 1 or (scan_launches["fast_select"], scan_launches["sample_patches"]) \
+            != (2 * SCAN_FRAMES,) * 2:
+        fail(f"graphed ok_scan: {scan_replays} replays, launches {scan_launches} in "
+             f"{SCAN_FRAMES} frames (one replay; K1 and K2 once a frame in it and in the "
+             "warm-up)")
+    out["ok_scan"] = {"ms_per_frame": scan_ms, "replayed_ms_per_frame": scan_replay_ms,
+                      "launches": scan_launches, "graph": runner.stats()["scan"]}
 
-    # the eager PSD clip between a frame's two graphs; the device's busy
-    # share of graphed frames under the profiler (the union of its kernels'
-    # intervals over the profiled frames' host time), and unprofiled: the
-    # frame's two graphs replayed back to back, each timed by CUDA events,
-    # over the chained frame's host time
-    schur = runner.steps["frame.head"].out.ba.schur
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        vio.psd_clip(schur)
-        torch.cuda.synchronize()
-    clip_ms = (time.perf_counter() - t0) * 1e3 / 20
+    # the device's busy share of graphed frames under the profiler (the
+    # union of its kernels' intervals over the profiled frames' host time),
+    # and unprofiled: the frame's graph replayed back to back, timed by CUDA
+    # events, over the chained frame's host time
     runner.load_state(start)
     gen = torch.Generator(device=dev).manual_seed(3)
     torch.cuda.synchronize()
@@ -870,20 +1017,17 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     act = device_activity(prof)
-    replay_ms = {name: cuda_ms(runner.steps[name].graph.replay, reps=10, warm=2)
-                 for name in ("frame.head", "frame.tail")}
+    replay_ms = {"frame": cuda_ms(runner.steps["frame"].graph.replay, reps=10, warm=2)}
     graphs_ms = sum(replay_ms.values())
-    print(f"eager PSD clip between the graphs: {clip_ms:.3f} ms a frame (eigh of the "
-          f"{schur.shape[-1]}x{schur.shape[-1]} Schur complement in float64, to a "
-          f"synchronize); 4 graphed frames under the profiler: {wall_ms / 4:.2f} ms a frame, "
+    print(f"4 graphed frames under the profiler: {wall_ms / 4:.2f} ms a frame, "
           f"{act['events'] / 4:.0f} device events a frame, busy {act['busy_ms'] / 4:.3f} ms "
           f"a frame (union of their intervals; summed {act['summed_ms'] / 4:.3f}, first to "
           f"last {act['span_ms'] / 4:.3f}, record_function ranges {act['annotation_ms']:.3f} "
           f"in all): busy share {act['busy_ms'] / wall_ms:.4f} of the profiled frames; "
-          f"unprofiled, frame.head {replay_ms['frame.head']:.3f} + frame.tail "
-          f"{replay_ms['frame.tail']:.3f} device ms a replay (CUDA events, back to back): "
-          f"{graphs_ms / g2[3]:.4f} of the chained graphed frame ({g2[3]:.2f} ms)")
-    out.update(clip_ms=clip_ms, profiled_ms_per_frame=wall_ms / 4,
+          f"unprofiled, the frame graph {replay_ms['frame']:.3f} device ms a replay (CUDA "
+          f"events, back to back): {graphs_ms / g2[3]:.4f} of the chained graphed frame "
+          f"({g2[3]:.2f} ms)")
+    out.update(profiled_ms_per_frame=wall_ms / 4,
                device_events_per_frame=act["events"] / 4,
                device_busy_ms_per_frame=act["busy_ms"] / 4,
                device_summed_ms_per_frame=act["summed_ms"] / 4,
@@ -904,6 +1048,7 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
         bg = getattr(step, "__self__", None)
         ms_t, mets = [], []
         zero_counters()
+        replays = REPLAYS["n"]
         for i in range(BATCH_FRAMES):
             u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
             lane_in = [torch.stack(parts) for parts in zip(*(lanes[j + i]
@@ -918,6 +1063,9 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
             torch.cuda.synchronize()
             ms_t.append((time.perf_counter() - t0) * 1e3)
             mets.append(m)
+        if bg is not None and REPLAYS["n"] - replays != BATCH_FRAMES:
+            fail(f"graphed batched step: {REPLAYS['n'] - replays} replays in {BATCH_FRAMES} "
+                 "steps (one a step)")
         b_runs[mode] = (graphs.snapshot(state), mets, float(np.mean(ms_t[2:])), counters(),
                         bg.stats() if bg is not None else None)
     (es, em, ems, _, _), (gs, gm, gms, gl, gstats) = b_runs["eager"], b_runs["graphed"]
@@ -929,9 +1077,9 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
           + "; ".join(graph_line(n, g) for n, g in gstats.items()))
     if not b_same:
         fail("graphed batched step differs from the eager one")
-    if (gl["fast_select"], gl["sample_patches"]) != (BATCH_FRAMES + 1,) * 2:
-        fail(f"graphed batched step: launches {gl}, expected K1 and K2 {BATCH_FRAMES + 1} "
-             "times (one extraction a step, and the warm-up)")
+    if (gl["fast_select"], gl["sample_patches"], gl["eigh"]) != (BATCH_FRAMES + 1,) * 3:
+        fail(f"graphed batched step: launches {gl}, expected K1, K2 and K6's eigh "
+             f"{BATCH_FRAMES + 1} times (one extraction and one clip a step, and the warm-up)")
     out["batched"] = {"ms_per_step": {"eager": ems, "graphed": gms}, "launches": gl,
                       "graphs": gstats}
     return out
@@ -1016,7 +1164,8 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
     """Record each OK frame that `slam` processes into `frames`: the host ms
     of its `process` call (to a synchronize), the kernel launches it ran
     (graph replays included; the first graphed frame also warms its graphs
-    up) and the stereo pairs they extracted, the marks (`FRAME_EVENTS`,
+    up), the CUDA graphs it replayed, and the stereo pairs they extracted,
+    the marks (`FRAME_EVENTS`,
     sorted) of the host work it ran beside the step, and its metrics
     (snapshot copies, as `_record` keeps them). `profile(frames)`, where
     given, says whether to run the frame under `torch.profiler`, whose
@@ -1041,7 +1190,7 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
 
     def observed_process(img_l, img_r, ts):
         ok, count = slam.state == State.OK, slam._frame_count
-        before = counters()
+        before, replays = counters(), REPLAYS["n"]
         ran.clear()
         wanted = bool(ok and profile is not None and profile(frames))
         t0 = time.perf_counter()
@@ -1058,6 +1207,7 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
         if ok and slam._frame_count > count:
             launches = {k: v - before[k] for k, v in counters().items()}
             frame = {"launches": launches, "extractions": extractions(launches),
+                     "replays": REPLAYS["n"] - replays,
                      "events": "".join(sorted(ran)), "metrics": last.get("metrics"),
                      "device_kernels": kernels}
             if kernels is None:
@@ -1151,10 +1301,9 @@ def protocol_worker(job):
         cfg, world, duration, imu_seed = protocol_world(run)
     t0 = time.perf_counter()
     zero_counters()
-    with count_prior_clip() as clip:
-        slam, gt, frames, extractions = run_state_machine(
-            cfg, world, duration, imu_seed, seed, torch.device(device),
-            MAP_FRONT if front == "map" else None)
+    slam, gt, frames, extractions = run_state_machine(
+        cfg, world, duration, imu_seed, seed, torch.device(device),
+        MAP_FRONT if front == "map" else None)
     launches = counters()
     e = run_errors(slam, gt)
     return {"run": run, "seed": seed, "front": front, "extractions": extractions,
@@ -1166,7 +1315,7 @@ def protocol_worker(job):
             "ok_frames": len(frames),
             "ms_per_ok_frame": float(np.mean([f["ms"] for f in frames if "ms" in f]))
             if frames else None,
-            "launches": launches, "prior_clip": clip, "seconds": time.perf_counter() - t0}
+            "launches": launches, "seconds": time.perf_counter() - t0}
 
 
 def min_passes(n: int, passes: int, trials: int, alpha: float) -> int:
@@ -1297,6 +1446,262 @@ def check_sample(name, st, bnds, kp, bud, pool_xy) -> dict:
           f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound']:.4f} ms ({r['by']})")
     return r
+
+
+def k6_inputs(dev, label, b, n, dtype):
+    """Seeded inputs of K6's eigh at one path's shape: the PnP solvers'
+    normal matrices M^T M of 12 rows (DLT, EPnP) and point covariances
+    (EPnP's axes) in float32; Schur complements of an information matrix
+    (rank 30 of 45, its blocks scaled over three decades) with a small
+    indefinite part, as float32 rounding leaves them, in float64."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, label)))
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    if label.startswith("clip"):
+        x = randn(b, n, 30) * torch.logspace(0, 3, n, device=dev, dtype=torch.float64)[:, None]
+        e = randn(b, n, n)
+        a = x @ x.transpose(-1, -2) + 1e-3 * (e + e.transpose(-1, -2))
+    elif label == "epnp_axes":
+        c = randn(b, 6, 3)
+        c = c - c.mean(dim=1, keepdim=True)
+        a = c.transpose(-1, -2) @ c / 6
+    else:
+        m = randn(b, 12, n)
+        a = m.transpose(-1, -2) @ m
+    return a.to(dt)
+
+
+def dlt_null_check(dev, b=512) -> dict:
+    """K6's smallest eigenvector of DLT normal matrices (`ops/pnp.py`'s
+    [512, 12, 12] float32) against float64 `torch.linalg.eigh` of the same
+    matrices, as the Davis-Kahan ratio sin(angle) (l2 - l1) / (eps32
+    ||A||_2); the twin's beside it."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import small_linalg
+    from pose_estimation_tpu_torch.utils import lie
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+
+    x = torch.stack([uni(-3, 3, b, 6), uni(-4, 4, b, 6), uni(2.5, 11, b, 6)], dim=-1)
+    r = lie.so3_exp(0.02 * torch.randn((b, 3), generator=gen, device=dev, dtype=torch.float64))
+    t = 0.06 * torch.randn((b, 3), generator=gen, device=dev, dtype=torch.float64)
+    xc = torch.einsum("bij,bmj->bmi", r, x) + t[:, None]
+    uv = xc[..., :2] / xc[..., 2:] + 1e-3 * torch.randn((b, 6, 2), generator=gen, device=dev,
+                                                          dtype=torch.float64)
+    xh = torch.cat([x, torch.ones_like(x[..., :1])], -1)
+    zero = torch.zeros_like(xh)
+    rows = torch.cat([torch.cat([xh, zero, -uv[..., :1] * xh], -1),
+                      torch.cat([zero, xh, -uv[..., 1:] * xh], -1)], 1).float()
+    a = torch.einsum("bij,bik->bjk", rows, rows)
+    w64, v64 = torch.linalg.eigh(a.double())
+    gap = (w64[:, 1] - w64[:, 0]) / (torch.finfo(torch.float32).eps * w64[:, -1])
+
+    def ratio(v):
+        c = (v[..., 0].double() * v64[..., 0]).sum(-1).abs() / v[..., 0].double().norm(dim=-1)
+        return torch.sqrt(torch.clamp(1 - c * c, min=0.0)) * gap
+
+    got = ratio(small_linalg.eigh(a)[1])
+    twin = ratio(small_linalg.eigh_plain(a)[1])
+    rec = {"shape": [b, 12, 12], "kernel_median": float(got.median()),
+           "kernel_max": float(got.max()), "twin_median": float(twin.median()),
+           "twin_max": float(twin.max())}
+    print(f"K6 eigh DLT null vector [{b}, 12, 12] float32 against float64: sin(angle) x gap / "
+          f"(eps ||A||) median {rec['kernel_median']:.3g}, max {rec['kernel_max']:.3g} (twin "
+          f"{rec['twin_median']:.3g}, {rec['twin_max']:.3g}; bound {K6_NULL_TOL})")
+    if not rec["kernel_max"] <= K6_NULL_TOL:
+        fail(f"K6 eigh DLT null vector: {rec} beyond {K6_NULL_TOL}")
+    return rec
+
+
+def k6_checks(dev) -> dict:
+    """Phase 3b: K6 (`ops/small_linalg.py`) against its twin on the card at
+    every shape of its paths (`K6_EIGH_SHAPES`, and the proper rotations'
+    [512, 3, 3] SVD of rank 3 and rank 2): eigenvalues, the residual and
+    orthogonality, the PSD clip in float64, the SVD's reconstruction; each
+    timed by CUDA events and the profiler's device time beside the twin
+    and the library call (`torch.linalg.eigh` / `svd`, eager), with its
+    bound. Returns {"eigh": {shape label: record}, "svd": record}."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import small_linalg
+
+    res = {"eigh": {}}
+    for label, b, n, dtype in K6_EIGH_SHAPES:
+        a = k6_inputs(dev, label, b, n, dtype)
+        graded = not label.startswith("clip")
+        w, v = small_linalg.eigh(a, graded=graded)
+        pw, pv = small_linalg.eigh_plain(a)
+        torch.cuda.synchronize()
+        a64, w64, v64 = a.double(), w.double(), v.double()
+        norm = torch.linalg.matrix_norm(a64)
+        w_err = float(((w64 - pw.double()).abs().amax(-1) / norm).max())
+        resid = float((torch.linalg.matrix_norm(a64 @ v64 - v64 * w64[:, None, :]) / norm).max())
+        orth = float((v64.transpose(-1, -2) @ v64
+                      - torch.eye(n, dtype=torch.float64, device=dev)).abs().max())
+        rec = {"shape": [b, n, n], "dtype": dtype, "w_err_rel": w_err, "residual_rel": resid,
+               "orth_err": orth}
+        if not (w_err <= K6_TOL[dtype] and resid <= K6_RES_TOL[dtype]
+                and orth <= K6_RES_TOL[dtype]):
+            fail(f"K6 eigh {label} {rec}: beyond {K6_TOL[dtype]} (eigenvalues) or "
+                 f"{K6_RES_TOL[dtype]} (residual, orthogonality)")
+        if label.startswith("clip"):
+            def clip(ww, vv):
+                return (vv * ww.clamp(min=0.0)[..., None, :]) @ vv.transpose(-1, -2)
+
+            clip_err = float((torch.linalg.matrix_norm(clip(w, v) - clip(pw, pv)) / norm).max())
+            rec["clip_err_rel"] = clip_err
+            if not clip_err <= 1e-12:
+                fail(f"K6 eigh {label}: the clip {clip_err:.3g} x ||S|| from the twin's")
+        es = a.element_size()
+        rec.update(
+            ms=cuda_ms(lambda: small_linalg.eigh(a, graded=graded)),
+            device_ms=device_ms(lambda: small_linalg.eigh(a, graded=graded), "eigh_kernel"),
+            plain_ms=cuda_ms(lambda: small_linalg.eigh_plain(a), reps=5, warm=1),
+            lib_ms=cuda_ms(lambda: torch.linalg.eigh(a), reps=5, warm=1))
+        rec["bound"], rec["by"] = bound(b * (2 * n * n + n) * es, b * eigh_instr(n),
+                                        FP64_INSTR_PER_S if dtype == "float64"
+                                        else FP32_INSTR_PER_S)
+        print(f"K6 eigh {label} [{b}, {n}, {n}] {dtype}: eigenvalues within {w_err:.3g} x "
+              f"||A|| of the twin, residual {resid:.3g} x ||A||, ||V^T V - I|| {orth:.3g}"
+              + (f", clip {rec['clip_err_rel']:.3g} x ||S||" if "clip_err_rel" in rec else "")
+              + f"; {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin "
+              f"{rec['plain_ms']:.4f}, torch.linalg.eigh {rec['lib_ms']:.4f}, bound "
+              f"{rec['bound']:.6f} ({rec['by']})")
+        res["eigh"][label] = rec
+    res["dlt_null"] = dlt_null_check(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    full = torch.randn((256, 3, 3), generator=gen, device=dev)
+    low = (torch.randn((256, 3, 2), generator=gen, device=dev)
+           @ torch.randn((256, 2, 3), generator=gen, device=dev))
+    a = torch.cat([full, low])                          # [512, 3, 3]: rank 3 and rank 2
+    u, sv, vh = small_linalg.svd(a)
+    pu, ps, pvh = small_linalg.svd_plain(a)
+    torch.cuda.synchronize()
+    a64 = a.double()
+    norm = torch.linalg.matrix_norm(a64)
+    rec_err = float((torch.linalg.matrix_norm((u.double() * sv.double()[..., None, :])
+                                              @ vh.double() - a64) / norm).max())
+    s_err = float(((sv.double() - ps.double()).abs().amax(-1) / norm).max())
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    orth = max(float((x.double().transpose(-1, -2) @ x.double() - eye).abs().max())
+               for x in (u, vh.transpose(-1, -2)))
+    rec = {"shape": [512, 3, 3], "dtype": "float32", "reconstruction_rel": rec_err,
+           "s_err_rel": s_err, "orth_err": orth}
+    if not (rec_err <= K6_TOL["float32"] and s_err <= K6_TOL["float32"]
+            and orth <= K6_RES_TOL["float32"]):
+        fail(f"K6 svd {rec}: beyond {K6_TOL['float32']} or {K6_RES_TOL['float32']}")
+    rec.update(ms=cuda_ms(lambda: small_linalg.svd(a)),
+               device_ms=device_ms(lambda: small_linalg.svd(a), "svd3_kernel"),
+               plain_ms=cuda_ms(lambda: small_linalg.svd_plain(a), reps=5, warm=1),
+               lib_ms=cuda_ms(lambda: torch.linalg.svd(a), reps=5, warm=1))
+    rec["bound"], rec["by"] = bound(512 * (9 + 9 + 3 + 9) * 4, 512 * SVD3_INSTR)
+    print(f"K6 svd [512, 3, 3] float32 (rank 3 and rank 2): ||U S Vh - A|| {rec_err:.3g} x "
+          f"||A||, S within {s_err:.3g} x ||A|| of the twin, orthogonality {orth:.3g}; "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin {rec['plain_ms']:.4f}, "
+          f"torch.linalg.svd {rec['lib_ms']:.4f}, bound {rec['bound']:.6f} ({rec['by']})")
+    res["svd"] = rec
+    return res
+
+
+def keyframe_chain(consts, k, dev, seed=0):
+    """(R [K, 3, 3], p [K, 3], ics [K-1]) of small random motions and random
+    IMU chunks on the card, for the solves' sync check."""
+    import torch
+
+    from pose_estimation_tpu_torch.imu import preintegration as pre
+    from pose_estimation_tpu_torch.utils import lie
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    zero3 = torch.zeros(3, device=dev)
+    grav = torch.zeros(3, device=dev)
+    grav[2] = 9.81
+    ics = []
+    for _ in range(k - 1):
+        gyr = 0.1 * torch.randn((20, 3), generator=g, device=dev)
+        acc = grav + 0.5 * torch.randn((20, 3), generator=g, device=dev)
+        st = pre.integrate_chunk(pre.init_state(dev), gyr, acc,
+                                 torch.ones(20, dtype=torch.bool, device=dev), zero3, zero3,
+                                 consts.imu)
+        ics.append(pre.finalize(st, zero3, zero3, consts.imu))
+    R = lie.so3_exp(0.05 * torch.randn((k, 3), generator=g, device=dev))
+    p = torch.cumsum(0.1 * torch.randn((k, 3), generator=g, device=dev), dim=0)
+    return R, p, pre.ImuConstraint(*(torch.stack(a) for a in zip(*ics)))
+
+
+def sync_checks(dev, cfg, consts, static, inputs, truth) -> dict:
+    """Phase 3c: the eager `ok_step`, `sfm_step` (DLT, EPnP, P3P),
+    `bootstrap_frame`, `full_init` and `refine_gravity` (routine and warm)
+    once each under `torch.cuda.set_sync_debug_mode("error")`, after a
+    warm-up call and with their uniforms drawn before: an operation that
+    waits for the card raises, naming itself. Returns each call's seconds."""
+    import torch
+
+    from pose_estimation_tpu_torch.backend import init_solvers
+    from pose_estimation_tpu_torch.models import vio
+    from pose_estimation_tpu_torch.testing import seeded_state
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    state = seeded_state(static, truth, dev)
+    img_l, img_r, gyr, acc, mask = inputs[1]
+    ref, _ = vio.extract_rectified(inputs[0][0], inputs[0][1], consts, static)
+    prof = cfg.profile
+    unit_g = torch.tensor(prof.gravity_dir, dtype=torch.float32, device=dev)
+    gravity = torch.tensor(cfg.gravity, dtype=torch.float32, device=dev)
+    R, p, ics = keyframe_chain(consts, 6, dev)
+
+    def sfm(solver):
+        st = dataclasses.replace(static, pnp_solver=solver)
+        return (lambda: vio.draw_sfm_uniforms(gen, dev, solver),
+                lambda u: vio.sfm_step(img_l, img_r, ref.desc, ref.xy, ref.valid, u, consts, st))
+
+    def none():
+        return None
+
+    calls = {
+        "ok_step": (lambda: vio.draw_ransac_uniforms(gen, dev),
+                    lambda u: vio.ok_step(state, img_l, img_r, gyr, acc, mask, None, consts,
+                                          static, ransac_u=u)),
+        **{f"sfm_step.{solver}": sfm(solver) for solver in ("dlt", "epnp", "p3p")},
+        "bootstrap_frame": (lambda: vio.draw_ransac_uniforms(gen, dev),
+                            lambda u: vio.bootstrap_frame(state, img_l, img_r, u, consts,
+                                                          static)),
+        "full_init": (none, lambda _: init_solvers.full_init(R, p, ics, unit_g,
+                                                             prof.alignment_axes, gravity)),
+        "refine_gravity": (none, lambda _: init_solvers.refine_gravity(
+            R, p, ics, unit_g, prof.alignment_axes, gravity, sigma_tilt=2.0, sigma_dba=2.0)),
+        "refine_gravity.warm": (none, lambda _: init_solvers.refine_gravity(
+            R, p, ics, unit_g, prof.alignment_axes, gravity, sigma_tilt=5.0, sigma_dba=5.0,
+            rounds=3)),
+    }
+    out = {}
+    for name, (draw, call) in calls.items():
+        call(draw())
+        u = draw()
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call(u)
+        except RuntimeError as exc:
+            fail(f"{name} waits for the card under set_sync_debug_mode('error'): {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    print("no synchronization under set_sync_debug_mode('error'): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in out.items()))
+    return out
 
 
 def kernel_checks(dev, cfg, frame, kcfg) -> dict:
@@ -1658,10 +2063,10 @@ def batched_checks(dev, consts, static, frames, gyrs, accs, mask, truth) -> dict
     t_end = time.perf_counter()
     launches = counters()
     ms_step = (t_end - t_warm) * 1e3 / (BATCH_FRAMES - 2)
-    if (launches["fast_select"], launches["sample_patches"]) != (BATCH_FRAMES, BATCH_FRAMES) \
-            or launches["fast_score_nms"] or launches["moment_maps"]:
+    if (launches["fast_select"], launches["sample_patches"], launches["eigh"]) \
+            != (BATCH_FRAMES,) * 3 or launches["fast_score_nms"] or launches["moment_maps"]:
         fail(f"batched step: launches {launches} in {BATCH_FRAMES} batched frames (one "
-             "extraction, K1 and K2 once each, a frame)")
+             "extraction, K1 and K2 once each, and the clip's K6, a frame)")
     excess = np.full(BATCH, -math.inf)
     dist = np.zeros(BATCH)
     for i, m in enumerate(metrics):
@@ -1854,9 +2259,11 @@ def observed_replays(profile=False):
 def check_replay(label, slam, gt, states_csv, launches, path_kernels) -> dict:
     """Phase 10's gates on one finished replay: it reached OK, its state is
     finite, every position lies within 2 x distance + 1 m of the truth,
-    its states.csv has the JAX package's header and 17 columns a row, and
-    the kernels of its path launched once per extraction, at least once an
-    OK frame (the others never). Returns the replay's numbers."""
+    its states.csv has the JAX package's header and 17 columns a row, the
+    extraction kernels of its path launched once per extraction, at least
+    once an OK frame (the others never), K6 launched (the SfM frames' PnP,
+    the clip), and a graphed replay's OK frames replayed one graph each
+    (four staged). Returns the replay's numbers."""
     import torch
 
     from pose_estimation_tpu_torch.io.ate import ate_rmse
@@ -1883,11 +2290,13 @@ def check_replay(label, slam, gt, states_csv, launches, path_kernels) -> dict:
         fail(f"{label}: states.csv is not the JAX package's format (header {lines[0]!r}, "
              f"{len(rows)} rows)")
     n_ext = extractions(launches)
-    others = [k for k in launches if k not in path_kernels]
+    others = [k for k in EXTRACTION if k not in path_kernels]
     if any(launches[k] != n_ext for k in path_kernels) or any(launches[k] for k in others) \
-            or n_ext < len(frames):
+            or n_ext < len(frames) or not (launches["eigh"] and launches["svd"]):
         fail(f"{label}: launches {launches} in {len(frames)} OK frames ({path_kernels} once "
-             "an extraction, the others never)")
+             "an extraction, the other extraction kernels never, K6 at least once)")
+    if slam.graphed:
+        check_frame_replays(label, frames, 4 if slam.staged else 1)
     ms = [f["ms"] for f in frames if "ms" in f]
     times = frame_times(frames)
     ate = ate_rmse(slam.trajectory, gt)
@@ -1964,7 +2373,8 @@ def entry_point_checks(dev) -> dict:
     from pose_estimation_tpu_torch.testing import sim_config, write_euroc, write_kitti
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, counted_solves() as solves:
+        out["solves"] = solves
         tmp = Path(tmp)
         t0 = time.perf_counter()
         ecfg = sim_config(**ENTRY_EUROC)
@@ -2022,7 +2432,7 @@ def entry_point_checks(dev) -> dict:
             n_prof = sum(f["device_kernels"] is not None for f in frames)
             r.update(keyframes=sum(kf), wall_s=wall, profiled_frames=n_prof)
             if not eager:
-                r["graphs"] = slam._graphs.stats()
+                r["graphs"] = {**slam._graphs.stats(), **slam._solve_graphs.stats()}
                 print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; graphs "
                       + "; ".join(graph_line(n, g) for n, g in r["graphs"].items())
                       + f"; {wall:.1f} s")
@@ -2176,6 +2586,9 @@ def main() -> None:
     kcfg = kitti_config()
     k = kernel_checks(dev, cfg, np.stack(frames[0]), kcfg)
 
+    # ---- phase 3b: K6 against its twin at the shapes of its paths
+    k6 = k6_checks(dev)
+
     # ---- phase 4: the frame step over the sim, from the true start pose,
     # on the kernel path and on the map-based front end
     inputs = [
@@ -2183,6 +2596,10 @@ def main() -> None:
               for a in (frames[i][0], frames[i][1], gyrs[i], accs[i], mask))
         for i in range(N_FRAMES)
     ]
+
+    # ---- phase 3c: the eager steps and solves wait for the card nowhere
+    syncs = sync_checks(dev, cfg, consts, static, inputs, truth)
+    count_replays()
 
     def run_chain(label, static, seed=0):
         """N_FRAMES chained ok_steps from the seeded window, the RANSAC
@@ -2240,6 +2657,9 @@ def main() -> None:
     if launches["fast_score_nms"] or launches["moment_maps"]:
         fail(f"ok_step on the kernel path at a width divisible by 16 launched K3 or K4: "
              f"{launches}")
+    if launches["eigh"] != N_FRAMES or launches["svd"]:
+        fail(f"ok_step must launch K6's eigh once a frame (the PSD clip) and its svd never "
+             f"({N_FRAMES} frames): {launches}")
     full_static = dataclasses.replace(static, full_ba_keyframes=True)
     full_launches, full_ms_frame, full_excess = run_chain(
         "ok_step, keyframe full BA", full_static)
@@ -2340,10 +2760,14 @@ def main() -> None:
     kworld = StereoInertialSim(kcfg, n_landmarks=150, seed=0)
     zero_counters()
     t0 = time.perf_counter()
-    with count_prior_clip() as kitti_clip:
+    with counted_solves() as kitti_solves:
         kslam, kgt, kframes, k_extract = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
     kitti_launches = counters()
     k_wall = time.perf_counter() - t0
+    check_frame_replays("KITTI width", kframes)
+    if not (kitti_launches["eigh"] and kitti_launches["svd"]):
+        fail(f"KITTI width: launches {kitti_launches} (K6's eigh and svd in the SfM frames, "
+             "its eigh in every OK frame's clip)")
     if kslam.state != State.OK or not kframes:
         fail(f"KITTI width: the state machine ended in {kslam.state.name} "
              f"after {len(kframes)} OK frames")
@@ -2370,10 +2794,11 @@ def main() -> None:
         fail(f"KITTI width: frame {i} {k_err[i]:.3f} m off after {k_dist[i]:.3f} m")
     k_times = frame_times(kframes)
     kitti_ms, kitti_median = k_times["mean_ms"], k_times["median_ms"]
-    kitti_graphs = kslam._graphs.stats()
-    eslam, _, eframes, _ = run_state_machine(kcfg, StereoInertialSim(kcfg, n_landmarks=150,
-                                                                     seed=0),
-                                             6.0, 10, 0, dev, graphed=False)
+    kitti_graphs = {**kslam._graphs.stats(), **kslam._solve_graphs.stats()}
+    with count_prior_clip() as kitti_clip:
+        eslam, _, eframes, _ = run_state_machine(
+            kcfg, StereoInertialSim(kcfg, n_landmarks=150, seed=0), 6.0, 10, 0, dev,
+            graphed=False)
     ke_times = frame_times(eframes)
     kitti_eager_ms, kitti_eager_median = ke_times["mean_ms"], ke_times["median_ms"]
     kitti_same = (np.array_equal(kslam.trajectory, eslam.trajectory)
@@ -2386,7 +2811,8 @@ def main() -> None:
           f"{kitti_eager_ms:.2f} eager (median {kitti_eager_median:.2f}); "
           f"ATE {ke['ate_pct']:.3f} % of path, |ba| {ke['ba']:.4f}, |bg| {ke['bg']:.5f}, "
           f"worst aligned error {k_err.max():.3f} m; {k_extract} extractions, launches "
-          f"{kitti_launches}; marginalization clip {kitti_clip}; graphs "
+          f"{kitti_launches}; marginalization clip (eager run) {kitti_clip}; solve calls, "
+          f"eager first calls and replays {kitti_solves}; graphs "
           + "; ".join(graph_line(n, g) for n, g in kitti_graphs.items())
           + "; the eager run's trajectory and state "
           + ("bit-equal" if kitti_same else "DIFFER"))
@@ -2394,6 +2820,15 @@ def main() -> None:
     print(f"  KITTI width, eager: {frame_times_line(ke_times)}")
     if not kitti_same:
         fail("KITTI width: the graphed state machine differs from the eager one")
+
+    # the accuracy protocol's failures are raised after the later phases
+    # (the entry points, the mesh) have run, so that one call reports them
+    # all; the run still fails
+    deferred = []
+
+    def defer(msg):
+        print(f"FAIL (raised at the end of the run): {msg}", flush=True)
+        deferred.append(msg)
 
     # ---- phase 8: the accuracy protocol (benchmarks/chip_accuracy.py), its
     # runs in worker processes that share the card, the longest first
@@ -2407,7 +2842,7 @@ def main() -> None:
         try:
             results = pool.map(protocol_worker, jobs, chunksize=1)
         except Exception as exc:  # a run raised in its worker
-            fail(f"accuracy protocol: a run raised {exc!r}")
+            defer(f"accuracy protocol: a run raised {exc!r}")
         pool.close()
         pool.join()
     print(f"accuracy protocol: {len(jobs)} runs in {PROTOCOL_WORKERS} worker processes, "
@@ -2416,30 +2851,32 @@ def main() -> None:
         name = f"{r['run']} seed {r['seed']}" + (" (map front end)" if r["front"] == "map"
                                                   else "")
         if r["state"] != "OK" or not r["ok_frames"]:
-            fail(f"accuracy {name}: the state machine ended in {r['state']} "
+            defer(f"accuracy {name}: the state machine ended in {r['state']} "
                  f"after {r['ok_frames']} OK frames")
         if not r["finite"] or r["over_divergence_m"] > DIVERGED_M:
-            fail(f"accuracy {name}: diverged (worst aligned error {r['worst_err_m']:.3f} m)")
+            defer(f"accuracy {name}: diverged (worst aligned error {r['worst_err_m']:.3f} m)")
         n = r["launches"]
         if r["front"] == "map":
             if (n["moment_maps"], n["fast_select"]) != (r["extractions"], r["extractions"]) \
                     or n["sample_patches"] or n["fast_score_nms"]:
-                fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
+                defer(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
                      "(K1 and K4 once each, K2 and K3 never)")
         elif r["run"] == "KITTI-dense":
             if (n["fast_score_nms"], n["sample_patches"]) != (r["extractions"],) * 2 \
                     or n["fast_select"] or n["moment_maps"]:
-                fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
+                defer(f"accuracy {name}: launches {n} in {r['extractions']} extractions "
                      "(K3 and K2 once each, K1 and K4 never)")
         elif (n["fast_select"], n["sample_patches"]) != (r["extractions"],) * 2 \
                 or n["fast_score_nms"] or n["moment_maps"]:
-            fail(f"accuracy {name}: launches {n} in {r['extractions']} extractions (K1 and "
+            defer(f"accuracy {name}: launches {n} in {r['extractions']} extractions (K1 and "
                  "K2 once each, K3 and K4 never)")
+        if not (n["eigh"] and n["svd"]):
+            defer(f"accuracy {name}: launches {n} (K6's eigh in the clip and the PnP, its svd "
+                 "in the PnP)")
         line = (f"accuracy {name}: ATE {r['ate_pct']:.3f} % of path, |ba| {r['ba']:.4f}, "
                 f"|bg| {r['bg']:.5f} -> {'pass' if r['pass'] else 'miss'}; "
                 f"{r['ok_frames']} OK frames, {r['ms_per_ok_frame']:.2f} ms each "
-                f"({PROTOCOL_WORKERS} processes share the card); marginalization clip "
-                f"{r['prior_clip']}; {r['seconds']:.1f} s")
+                f"({PROTOCOL_WORKERS} processes share the card); {r['seconds']:.1f} s")
         if r["front"] == "map" or r["run"] in EXTRA_RUNS:
             line += f"; {r['extractions']} extractions, launches {n}"
         elif r["seed"] == 0:
@@ -2452,17 +2889,17 @@ def main() -> None:
     for r in extra:     # held to 3 x the gates; the gate verdict is printed above
         if not (r["ate_pct"] < RUNAWAY * GATE_ATE_PCT and r["ba"] < RUNAWAY * GATE_BA
                 and r["bg"] < RUNAWAY * GATE_BG):
-            fail(f"accuracy {r['run']} ({r['front']} front end): ATE {r['ate_pct']:.3f} %, "
+            defer(f"accuracy {r['run']} ({r['front']} front end): ATE {r['ate_pct']:.3f} %, "
                  f"|ba| {r['ba']:.4f}, |bg| {r['bg']:.5f} beyond {RUNAWAY} x the gates")
     for r in results:
         if r["run"] in HARD_RUNS and not r["pass"]:
-            fail(f"accuracy {r['run']} seed 0: ATE {r['ate_pct']:.3f} %, |ba| {r['ba']:.4f}, "
+            defer(f"accuracy {r['run']} seed 0: ATE {r['ate_pct']:.3f} %, |ba| {r['ba']:.4f}, "
                  f"|bg| {r['bg']:.5f} outside ATE < {GATE_ATE_PCT} %, |ba| < {GATE_BA}, "
                  f"|bg| < {GATE_BG}")
         if r["run"] in RATE_RUNS and not (r["ate_pct"] < RUNAWAY * GATE_ATE_PCT
                                           and r["ba"] < RUNAWAY * GATE_BA
                                           and r["bg"] < RUNAWAY * GATE_BG):
-            fail(f"accuracy {r['run']} seed {r['seed']}: ATE {r['ate_pct']:.3f} %, "
+            defer(f"accuracy {r['run']} seed {r['seed']}: ATE {r['ate_pct']:.3f} %, "
                  f"|ba| {r['ba']:.4f}, |bg| {r['bg']:.5f} beyond {RUNAWAY} x the gates")
     for run, (j_pass, j_n) in RATE_RUNS.items():
         got = sum(r["pass"] for r in results if r["run"] == run)
@@ -2471,7 +2908,7 @@ def main() -> None:
               f"{need} needed (the JAX package passes {j_pass} of {j_n} keys; at that rate "
               f"fewer than {need} passes come with probability below {RATE_ALPHA})")
         if got < need:
-            fail(f"accuracy {run}: {got} of {len(RATE_SEEDS)} passes, fewer than {need}")
+            defer(f"accuracy {run}: {got} of {len(RATE_SEEDS)} passes, fewer than {need}")
 
     # ---- phase 10: the entry points (the replay CLIs, their datasets and
     # configuration files written here)
@@ -2489,21 +2926,26 @@ def main() -> None:
     if loaded:
         fail(f"the run imported JAX or the JAX package: {loaded[:5]}")
 
-    # K4 alone has a library time: one conv2d computes its maps. No single
-    # PyTorch call computes what K1, K2, K3 or K5 computes. Launches are
-    # those of the paths' runs, each counted from zero: the main path (the
-    # EuRoC-width chain on the kernel path for K1 and K2, the KITTI-width
-    # state machine for K3, the map front end's chain for K4, the probe's
-    # sweep for K5), then the paths that run K1, K2 or K3 beside it: the
-    # staged frames, ok_scan, the graphed chains, staged frames, ok_scan
-    # and batched step (launches run: each graph's recorded launches times
-    # its replays, and the warm-up's), the unprofiled EuRoC replays without
-    # and with the viewer and staged, and the mesh dry run's ranks.
+    # K4 has a library time, one conv2d computes its maps, and K6 has two,
+    # torch.linalg.eigh and svd. No single PyTorch call computes what K1,
+    # K2, K3 or K5 computes. Launches are those of the paths' runs, each
+    # counted from zero: the main path (the EuRoC-width chain on the kernel
+    # path for K1, K2 and K6's eigh, the KITTI-width state machine for K3
+    # and K6's svd, the map front end's chain for K4, the probe's sweep for
+    # K5), then the paths that run them beside it: the staged frames,
+    # ok_scan, the graphed chains, staged frames, ok_scan and batched step
+    # (launches run: each graph's recorded launches times its replays, and
+    # the warm-up's), the unprofiled EuRoC replays without and with the
+    # viewer and staged, and the mesh dry run's ranks. K6's headline
+    # numbers are those of its most frequent call on the paths: the clip of
+    # one frame's [45, 45] Schur complement (eigh), the proper rotations'
+    # [512, 3, 3] (svd); every shape's are in "shapes".
     main_launches = {"fast_select": launches["fast_select"],
                      "sample_patches": launches["sample_patches"],
                      "fast_score_nms": kitti_launches["fast_score_nms"],
                      "moment_maps": map_launches["moment_maps"],
-                     "stream_probe": k["stream_probe"]["launches"]}
+                     "stream_probe": k["stream_probe"]["launches"],
+                     "eigh": launches["eigh"], "svd": kitti_launches["svd"]}
     by_path = {name: {"main": n} for name, n in main_launches.items()}
     for path, counts in (("staged", staged["launches"]), ("ok_scan", staged["scan_launches"]),
                          ("graphed_chain", graphed["chain"]["launches"]),
@@ -2513,7 +2955,8 @@ def main() -> None:
                          ("graphed_batched", graphed["batched"]["launches"]),
                          *((key, entry[key]["launches"]) for key in
                            ("euroc_plain", "euroc_viewer", "euroc_staged")),
-                         ("mesh_dryrun", mesh["launches"])):
+                         ("mesh_dryrun", mesh["launches"]),
+                         ("kitti_state_machine", {"eigh": kitti_launches["eigh"]})):
         for name, n in counts.items():
             if n and name in by_path:
                 by_path[name][path] = n
@@ -2523,7 +2966,14 @@ def main() -> None:
                "fast_score_nms": ("fast_score_nms.cu",
                                   "pose_estimation_tpu/ops/pallas_fast.py:34"),
                "moment_maps": ("moment_maps.cu", "pose_estimation_tpu/ops/pallas_fast.py:518"),
-               "stream_probe": ("stream_probe.cu", "benchmarks/launch_overhead_exp.py:37")}
+               "stream_probe": ("stream_probe.cu", "benchmarks/launch_overhead_exp.py:37"),
+               "eigh": ("small_linalg.cu", "no pallas_call: the device-side jnp.linalg.eigh "
+                        "of pose_estimation_tpu/ops/pnp.py:50"),
+               "svd": ("small_linalg.cu", "no pallas_call: the device-side jnp.linalg.svd "
+                       "of pose_estimation_tpu/ops/pnp.py:54")}
+    k["eigh"] = dict(k6["eigh"]["clip"], err=k6["eigh"]["clip"]["w_err_rel"],
+                     shapes=k6["eigh"])
+    k["svd"] = dict(k6["svd"], err=k6["svd"]["reconstruction_rel"])
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": f"pose_estimation_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": sum(by_path[name].values()),
@@ -2531,7 +2981,8 @@ def main() -> None:
          "max_abs_err": k[name]["err"], "ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
          "bound_ms": k[name]["bound"], "bound_by": k[name]["by"],
          "library_ms": k[name]["lib_ms"], "device_ms": k[name]["device_ms"],
-         **{key: k[name][key] for key in ("kitti_width", "protocol") if key in k[name]},
+         **{key: k[name][key] for key in ("kitti_width", "protocol", "shapes")
+            if key in k[name]},
          **({"batched": dict(batched_res[name],
                              launches=batched_res["launches"][name])}
             if name in batched_res else {})}
@@ -2542,6 +2993,7 @@ def main() -> None:
         "kitti_median_ms": {"graphed": kitti_median, "eager": kitti_eager_median},
         "kitti_frame_times": {"graphed": k_times, "eager": ke_times},
         "entry_points": entry, "staged": staged, "graphed": graphed, "mesh": mesh,
+        "sync_checks_s": syncs,
         "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
                     "frames_per_s": batched_res["frames_per_s"],
                     "lane_p_err": batched_res["lane_p_err"],
@@ -2551,6 +3003,8 @@ def main() -> None:
                     "full_ba_lane_p_err": batched_res["full_ba_lane_p_err"]},
         "profiler_sessions_repeated": PROFILE_MISSES}
     print(json.dumps(summary))
+    if deferred:
+        fail("; ".join(deferred))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,7 @@ import torch
 from pose_estimation_tpu_torch.backend import lm as lm_mod
 from pose_estimation_tpu_torch.backend import residuals as res
 from pose_estimation_tpu_torch.models.window import WindowState
+from pose_estimation_tpu_torch.ops import small_linalg
 from pose_estimation_tpu_torch.utils import lie
 
 
@@ -181,11 +182,10 @@ def psd_clip(schur: torch.Tensor) -> torch.Tensor:
     window. An indefinite prior makes the BA cost unbounded below and LM
     runs away along it. The clip runs in float64, so that it adds no
     rounding itself (a deviation from the JAX package, which keeps them).
-    `torch.linalg.eigh` checks its result on the host: this is the one
-    step of the OK frame that a CUDA graph cannot capture, so the graphed
-    frame runs it between its two graphs (`graphs.py`)."""
+    The eigendecomposition is K6 (`ops/small_linalg.py`), which reads
+    nothing on the host, so the frame's CUDA graph holds the clip."""
     dtype = schur.dtype
-    evals, evecs = torch.linalg.eigh(schur.double())
+    evals, evecs = small_linalg.eigh(schur.double(), graded=False)
     out = ((evecs * torch.clamp(evals, min=0.0)[..., None, :])
            @ evecs.transpose(-1, -2)).to(dtype)
     return 0.5 * (out + out.transpose(-1, -2))

@@ -7,7 +7,9 @@ constraints between them. The JAX package evaluates the residual blocks in
 a Python loop over pairs; here every block of a stage is one batched
 evaluation, and each block's whitener (constant over a solve) is computed
 once. The solves run in the dtype of their inputs (float32 on the card,
-float64 in the parity tests).
+float64 in the parity tests). Nothing here reads the device on the host
+(`inv_ex` reports a failure in `info`), so a CUDA graph captures
+`full_init` and `refine_gravity` (`graphs.SolveGraphs`).
 """
 
 from __future__ import annotations
@@ -126,8 +128,8 @@ def solve_gravity_tilt_bias(R, p, ics, g0, max_iterations: int = 50,
     dtype, dev = R.dtype, R.device
     g_mag = torch.linalg.norm(g0)
     ghat = g0 / g_mag
-    e1 = torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev)
-    e2 = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    e1, e2 = eye3[0], eye3[1]
     a = torch.where(ghat[0].abs() < 0.9, e1, e2)
     b1 = torch.linalg.cross(ghat, a)
     b1 = b1 / torch.linalg.norm(b1)
@@ -213,9 +215,9 @@ def refine_gravity(R, p, ics, unit_g, axes, gravity, max_iterations: int = 50,
     total_dba = torch.zeros(3, dtype=dtype, device=dev)
     g_est = torch.zeros(3, dtype=dtype, device=dev)
     dvec = torch.zeros(ics.inv_cov.shape[-1], dtype=dtype, device=dev)
-    dvec[3:6] = sigma_v ** 2
-    dvec[6:9] = sigma_p ** 2
-    inv_cov = torch.linalg.inv(torch.linalg.inv(ics.inv_cov) + torch.diag(dvec))
+    dvec[3:6].fill_(sigma_v ** 2)
+    dvec[6:9].fill_(sigma_p ** 2)
+    inv_cov = torch.linalg.inv_ex(torch.linalg.inv_ex(ics.inv_cov)[0] + torch.diag(dvec))[0]
     ics = ics._replace(inv_cov=inv_cov)
     for _ in range(rounds):
         g_est, dba, _, _ = solve_gravity_tilt_bias(

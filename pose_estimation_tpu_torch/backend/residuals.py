@@ -222,9 +222,11 @@ def gravity_velocity_jacobians(R_i, ic):
 
 
 def embed_axes(x2, axes, like):
-    """The 3-vector with x2's two entries at `axes` and zero elsewhere."""
-    out = torch.zeros(3, dtype=like.dtype, device=like.device)
-    return out.index_put((torch.tensor(list(axes), device=like.device),), x2)
+    """The 3-vector with x2's two entries at `axes` and zero elsewhere (no
+    index tensor made from host values, which a CUDA graph cannot hold)."""
+    parts = [torch.zeros((), dtype=like.dtype, device=like.device)] * 3
+    parts[axes[0]], parts[axes[1]] = x2[0], x2[1]
+    return torch.stack(parts)
 
 
 def alignment_residual(delta_r2, init_g, unit_g, axes):

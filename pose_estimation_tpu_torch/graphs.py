@@ -1,39 +1,54 @@
-"""Captured CUDA graphs of the OK-state steps: the port's counterpart of
-the JAX package's `jax.jit` sites.
+"""Captured CUDA graphs of the port's device calls: its counterpart of the
+JAX package's `jax.jit` sites.
 
 The JAX package hands each of its device entry points to the device as
 one compiled program: the OK frame (`pose_estimation_tpu/slam.py:171`),
-its four stages (`:151-170`), the IMU chunk integration (`:217`) and the
-batched step (`parallel/batched.py:68`, `parallel/batched_slam.py:57-63`).
-Run eagerly, the port's OK frame is ~15.6k kernel launches, each
-dispatched from Python. Here each step is captured once as a CUDA graph
-(`torch.cuda.CUDAGraph`) and replayed: the host copies the frame's inputs
-into static buffers and replays the graph on the current stream.
+its four stages (`:151-170`), the IMU chunk integration (`:217`), the
+batched step (`parallel/batched.py:68`, `parallel/batched_slam.py:57-63`)
+and the state machine's other calls: the left image's extraction
+(`_seed_ref`), the SfM frame (`_sfm_step`), the constraint of an SfM frame
+(`_finalize`), the initializer (`_full_init_jit`), the first OK frame
+(`_bootstrap`), the gravity refinement (`_refine_jit`) and the warm
+recovery (`_recover_jit`) (`slam.py:176-222`). Run eagerly, the port's OK
+frame is ~15.6k kernel launches, each dispatched from Python. Here each
+call is captured once as a CUDA graph (`torch.cuda.CUDAGraph`) and
+replayed: the host copies the call's inputs into static buffers and
+replays the graph on the current stream.
 
 - `CapturedStep`: one call of a function on static tensors, captured at
   its first call and replayed at every later one.
 - `FrameGraphs`: the OK-state steps of one sequence
-  (`slam.VisualInertialSLAM`): the fused frame, the staged frame (its four
-  stages), the overflow IMU chunks, and `ok_scan` as replays of the fused
-  frame (each frame needs the host between its two graphs, so T frames
-  cannot be one graph).
+  (`slam.VisualInertialSLAM`): the fused frame (one graph), the staged
+  frame (four, one a stage), the overflow IMU chunks, and `ok_scan` (T
+  frames in one graph).
 - `BatchedGraphs`: the batched step of `parallel.batched` for one batch
-  size (`parallel.batched_slam.BatchedReplay`).
+  size, one graph (`parallel.batched_slam.BatchedReplay`).
+- `SolveGraphs`: the state machine's other calls, one graph per call and
+  shape of its inputs, as JAX retraces per shape, captured at the second
+  call (the first runs eagerly).
 
-The live state is the runner's: static buffers that each step reads and
-that the step's last operations overwrite (`commit`, a `copy_` inside
-the capture), so replays chain the state with no host copy. A caller that
-replaces the state (a reinit, a recovery, `load_checkpoint`) hands the new
-tree to `load_state`, which copies it in. A step's outputs are static too:
-the next replay overwrites them, so what the caller keeps past that is
-copied out first (`snapshot`, one launch).
+The live state of the OK steps is the runner's: static buffers that each
+step reads and that the step's last operations overwrite (`commit`, a
+`copy_` inside the capture), so replays chain the state with no host
+copy. A caller that replaces the state (a reinit, a recovery,
+`load_checkpoint`) hands the new tree to `load_state`, which copies it in.
+A step's outputs are static too: the next replay overwrites them, so what
+the caller keeps past that is copied out first (`snapshot`, one launch).
 
-`torch.linalg.eigh` reads its result on the host, so the PSD clip of the
-marginalization prior (`ba.psd_clip`) is the one operation of the OK frame
-that no graph holds: each frame is a graph up to the Schur complement, the
-clip run eagerly (one host sync), and a graph after it. All graphs of one
-runner share one memory pool and are replayed in the order of their
-capture.
+No operation of these calls reads the device on the host: the PSD clip of
+the marginalization prior and the PnP solvers' eigendecompositions and
+SVDs are kernel K6 (`ops/small_linalg.py`), which `torch.linalg.eigh` and
+`svd` would check on the host. So an OK frame is one graph.
+
+Memory. The graphs of a `FrameGraphs` (or `BatchedGraphs`) share one
+memory pool: they are replayed in the order of their capture, each
+frame's or stage's graphs in turn, so a later graph's memory may reuse
+what an earlier one freed. `SolveGraphs` break that order: they run
+between the OK frames after a relocalization or a cold reinit, and among
+themselves `sfm_step` replays again after `refine` was captured. So each
+of its graphs has a memory pool of its own, apart from the frame graphs'
+and from each other's: a replay overwrites nothing but its own graph's
+memory. Only a call made twice has a graph and a pool.
 
 The kernels' Python launch counters count a launch when the wrapper
 issues it: in a capture that is the recording, which runs nothing. Each
@@ -61,14 +76,15 @@ import torch
 
 from pose_estimation_tpu_torch.imu import preintegration as pre
 from pose_estimation_tpu_torch.models import vio as vio_mod
-from pose_estimation_tpu_torch.ops import fast, moments, sample
+from pose_estimation_tpu_torch.ops import fast, moments, sample, small_linalg
 from pose_estimation_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def kernel_counts() -> dict:
-    """The launch counters of the hand kernels on the OK frame's paths."""
+    """The launch counters of the hand kernels on the captured paths."""
     return {fn.__name__: fn.launches for fn in (fast.fast_select, fast.fast_score_nms,
-                                                sample.sample_patches, moments.moment_maps)}
+                                                sample.sample_patches, moments.moment_maps,
+                                                small_linalg.eigh, small_linalg.svd)}
 
 
 # over the process, the launches that captures recorded and that replays ran
@@ -168,7 +184,7 @@ class CapturedStep:
     at the first call and replayed at every call; on the CPU called each
     time. `args` are trees of static tensors that the caller owns and
     writes between calls; the outputs are static as well (`out`). The
-    caller warms `fn` up before the first call (`_Graphs._run`)."""
+    caller warms `fn` up before the first call (`warm_up`)."""
 
     def __init__(self, name: str, fn, args, device, pool=None):
         self.name, self.fn, self.args = name, fn, args
@@ -206,8 +222,8 @@ class CapturedStep:
                          if n != before.get(k, 0)}
         for k, n in self.launches.items():
             recorded[k] = recorded.get(k, 0) + n
-        # the pool is the runner's, shared by its graphs: its size after
-        # this capture
+        # the pool's size after this capture (a runner's pool is shared by
+        # its graphs)
         self.stats = {"capture_s": t1 - t0, "instantiate_s": t2 - t1,
                       "nodes": graph_nodes(graph), "pool_bytes": pool_bytes(graph.pool())}
 
@@ -228,22 +244,30 @@ class CapturedStep:
         return self.out
 
 
+def warm_up(fn, args, device) -> None:
+    """Run `fn` once on clones of `args` on a side stream, so that nothing
+    the capture needs is left uninitialised (the kernel library, cuBLAS
+    and cuSOLVER handles, the cached launch tables) and no live buffer
+    changes."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*tree_map(torch.clone, args))
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
 class _Eager:
-    """The warm-up's executor: a runner's chain of steps run eagerly, on
-    clones of its state and inputs."""
+    """The warm-up's executor: a runner's chain of steps run eagerly."""
 
     @staticmethod
     def captured(name, fn, args):
         return fn(*args)
 
-    @staticmethod
-    def clip(name, schur):
-        return vio_mod.psd_clip(schur)
-
 
 class _Graphs:
-    """What the runners share: the static state, the static inputs, the
-    captured steps, their memory pool, and the eager clip's buffers."""
+    """What the OK-state runners share: the static state, the static
+    inputs, the captured steps and their memory pool."""
 
     def __init__(self, state, consts, static, device):
         self.consts, self.static = consts, static
@@ -252,7 +276,6 @@ class _Graphs:
         self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self.steps: dict[str, CapturedStep] = {}
         self._inputs: dict[str, torch.Tensor] = {}
-        self._clips: dict[str, torch.Tensor] = {}
         self._warm_paths: set[str] = set()
 
     def load_state(self, state) -> None:
@@ -267,7 +290,6 @@ class _Graphs:
         if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
             if buf is not None:
                 self.steps.clear()
-                self._clips.clear()
                 self._warm_paths.clear()
             buf = self._inputs[name] = value.to(self.device, copy=True)
         else:
@@ -282,31 +304,12 @@ class _Graphs:
             step = self.steps[name] = CapturedStep(name, fn, args, self.device, self.pool)
         return step()
 
-    def clip(self, name, schur):
-        """The eager PSD clip between two graphs, into a static buffer that
-        the second graph reads."""
-        clipped = vio_mod.psd_clip(schur)
-        buf = self._clips.get(name)
-        if buf is None:
-            buf = self._clips[name] = clipped.clone()
-        else:
-            buf.copy_(clipped)
-        return buf
-
     def _run(self, path: str, chain, *inputs):
         """Run `chain(executor, state, *inputs)` through the captured steps,
-        after warming it up once on a side stream, on clones of the state
-        and inputs, so that the warm-up neither advances the live state nor
-        leaves anything uninitialised for the capture (the kernel library,
-        cuBLAS and cuSOLVER handles, the cached launch tables)."""
+        after warming it up once (`warm_up`, on clones of the state and
+        inputs, so that the warm-up does not advance the live state)."""
         if self.device.type == "cuda" and path not in self._warm_paths:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                chain(_Eager, tree_map(torch.clone, self.state),
-                      *tree_map(torch.clone, inputs))
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
+            warm_up(lambda st, *a: chain(_Eager, st, *a), (self.state, *inputs), self.device)
             self._warm_paths.add(path)
         return chain(self, self.state, *inputs)
 
@@ -329,16 +332,16 @@ class FrameGraphs(_Graphs):
 
     def _fused(self, ex, state, *inputs):
         c, s = self.consts, self.static
-        carry = ex.captured("frame.head", lambda st, *a: vio_mod.ok_head(st, *a, c, s),
-                        (state, *inputs))
-        clipped = ex.clip("frame", carry.ba.schur)
-        return ex.captured("frame.tail",
-                       lambda st, k, x: commit(st, *vio_mod.track_tail(k, x, c, s)),
-                       (state, carry, clipped))
+
+        def frame(st, img_l, img_r, gyr, acc, mask, u):
+            return commit(st, *vio_mod.ok_step(st, img_l, img_r, gyr, acc, mask, None, c, s,
+                                               ransac_u=u))
+
+        return ex.captured("frame", frame, (state, *inputs))
 
     def ok_step(self, img_l, img_r, gyr, acc, mask, ransac_u) -> dict:
         """One fused OK frame (`models.vio.ok_step` with the uniforms
-        given): the static metrics."""
+        given), one graph: the static metrics."""
         return self._run("fused", self._fused,
                          *self._frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
 
@@ -353,8 +356,8 @@ class FrameGraphs(_Graphs):
             new, cur, tr = vio_mod.stage_frontend(st, *a, c, s)
             return commit(st, new, (cur, tr))
 
-        def ba_tail(st, carry, clipped):
-            new, cost, iters = vio_mod.stage_ba_finish(carry, clipped, s)
+        def ba(st, n_matches):
+            new, cost, iters = vio_mod.stage_ba(st, n_matches, c, s)
             return commit(st, new, (cost, iters))
 
         def pool(st, cur, tr, cost, iters, dt, p_pred):
@@ -364,15 +367,13 @@ class FrameGraphs(_Graphs):
 
         dt, p_pred = ex.captured("imu", imu, (state, gyr, acc, mask))
         cur, tr = ex.captured("frontend", frontend, (state, img_l, img_r, u))
-        carry = ex.captured("ba.head", lambda st, n: vio_mod.stage_ba_solve(st, n, c, s),
-                        (state, tr.n_matches))
-        cost, iters = ex.captured("ba.tail", ba_tail, (state, carry, ex.clip("ba", carry.schur)))
+        cost, iters = ex.captured("ba", ba, (state, tr.n_matches))
         return ex.captured("pool", pool, (state, cur, tr, cost, iters, dt, p_pred))
 
     def staged_step(self, img_l, img_r, gyr, acc, mask, ransac_u) -> dict:
         """One OK frame as the four stages (`stage_imu`, `stage_frontend`,
-        `stage_ba` in two graphs around the clip, `stage_pool`), each its
-        own graph: the static metrics (`models.vio.frame_outputs`)."""
+        `stage_ba`, `stage_pool`), each its own graph: the static metrics
+        (`models.vio.frame_outputs`)."""
         return self._run("staged", self._staged,
                          *self._frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
 
@@ -391,37 +392,44 @@ class FrameGraphs(_Graphs):
         self._run("integrate", self._integrate, self._put("gyr", gyr),
                   self._put("acc", acc), self._put("mask", mask))
 
+    def _scan(self, ex, state, *inputs):
+        c, s = self.consts, self.static
+
+        def scan(st, imgs_l, imgs_r, gyrs, accs, masks, u):
+            return commit(st, *vio_mod.ok_scan(st, imgs_l, imgs_r, gyrs, accs, masks, None, c, s,
+                                               ransac_u=u))
+
+        return ex.captured("scan", scan, (state, *inputs))
+
     def ok_scan(self, imgs_l, imgs_r, gyrs, accs, masks, generator) -> dict:
-        """`models.vio.ok_scan` as T replays of the fused frame, the
-        uniforms drawn from `generator` in its order: the stacked outputs
-        (the newest R, p, v, n_tracked, is_keyframe, need_reinit)."""
-        outs = []
-        for t in range(imgs_l.shape[0]):
-            u = vio_mod.draw_ransac_uniforms(generator, self.device)
-            m = self.ok_step(imgs_l[t], imgs_r[t], gyrs[t], accs[t], masks[t], u)
-            outs.append(snapshot({"R": m["rec_R"], "p": m["rec_p"], "v": m["rec_v"],
-                                  "n_tracked": m["n_tracked"],
-                                  "is_keyframe": m["is_keyframe"],
-                                  "need_reinit": m["need_reinit"]}))
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        """`models.vio.ok_scan` over T frames as one graph (the JAX
+        package's one `lax.scan` dispatch), the T frames' uniforms drawn
+        from `generator` first, in the order T `ok_step` calls draw them:
+        the static stacked outputs (the newest R, p, v, n_tracked,
+        is_keyframe, need_reinit). A new T captures a new graph."""
+        u = torch.stack([torch.stack(vio_mod.draw_ransac_uniforms(generator, self.device))
+                         for _ in range(imgs_l.shape[0])])
+        return self._run("scan", self._scan, self._put("scan.img_l", imgs_l),
+                         self._put("scan.img_r", imgs_r), self._put("scan.gyr", gyrs),
+                         self._put("scan.acc", accs), self._put("scan.mask", masks),
+                         self._put("scan.u", u))
 
 
 class BatchedGraphs(_Graphs):
     """The batched step of `parallel.batched` (one extraction for the 2B
-    images, `vmap` over the frame step) for the batch size of its state,
-    as two captured graphs around the clip of the B Schur complements."""
+    images, `vmap` over the frame step, the clip of the B Schur
+    complements between the two vmapped parts) for the batch size of its
+    state, as one captured graph."""
 
     def __init__(self, state_b, consts, static, device):
         from pose_estimation_tpu_torch.parallel import batched
 
         super().__init__(state_b, consts, static, device)
-        self._head, self._tail = batched.make_batched_parts(consts, static)
+        self._step = batched.make_batched_step(consts, static)
 
     def _batched(self, ex, state, *inputs):
-        carry = ex.captured("batch.head", self._head, (state, *inputs))
-        clipped = ex.clip("batch", carry.ba.schur)
-        return ex.captured("batch.tail", lambda st, k, x: commit(st, *self._tail(k, x)),
-                       (state, carry, clipped))
+        return ex.captured("batch", lambda st, *a: commit(st, *self._step(st, *a)),
+                           (state, *inputs))
 
     def step(self, imgs_l, imgs_r, gyr, acc, mask, u_b) -> dict:
         """One batched frame (`parallel.batched.make_batched_step`'s step):
@@ -430,3 +438,61 @@ class BatchedGraphs(_Graphs):
                          self._put("imgs_r", imgs_r), self._put("gyr", gyr),
                          self._put("acc", acc), self._put("mask", mask),
                          self._put("u", u_b))
+
+
+class SolveGraphs:
+    """The state machine's calls besides the OK-state steps: one graph for
+    each name and each shape and type of the inputs' tensors, as JAX
+    retraces per shape. The first call of a name and shapes runs eagerly:
+    it is the warm-up, and a call made once a run (the left image's
+    extraction, the initializer, the bootstrap frame, unless a reinit
+    repeats them) pays neither a capture nor a pool. The second call
+    captures the graph with a memory pool of its own; from then on `run`
+    copies the inputs into the graph's static inputs and replays. The
+    outputs of a replay are static (the next replay of the same graph
+    overwrites them). The functions close over the configuration (`consts`,
+    `static`): a new configuration takes a new runner."""
+
+    def __init__(self, consts, static, device):
+        self.consts, self.static = consts, static
+        self.device = torch.device(device)
+        self.steps: dict[tuple, CapturedStep] = {}
+        self.calls: dict[tuple, int] = {}
+
+    @staticmethod
+    def key(name: str, args) -> tuple:
+        """The graph's key: the name and the inputs' shapes and types."""
+        return (name, *((tuple(t.shape), t.dtype) for t in tree_leaves(args)))
+
+    def run(self, name: str, fn, *args):
+        """`fn(*args)`: eagerly at the first call of the inputs' shapes,
+        else as the captured step `name` of those shapes (its static
+        outputs). `fn` is read at the first two calls of a shape."""
+        key = self.key(name, args)
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if n == 1:
+            return fn(*args)
+        step = self.steps.get(key)
+        if step is None:
+            static = tree_map(lambda t: t.to(self.device, copy=True), args)
+            pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+            step = self.steps[key] = CapturedStep(name, fn, static, self.device, pool)
+        else:
+            for d, s in zip(tree_leaves(step.args), tree_leaves(args)):
+                d.copy_(s)
+        return step()
+
+    def stats(self) -> dict:
+        """Each call's eager runs and each graph's replays, launches,
+        capture and instantiate seconds, node count and pool bytes, by name
+        and chain or input length (the first dimension of its first input)
+        where one name has several shapes."""
+        out = {}
+        for key, n in self.calls.items():
+            name, *shapes = key
+            many = sum(k[0] == name for k in self.calls) > 1
+            label = f"{name}[{shapes[0][0][0]}]" if many and shapes and shapes[0][0] else name
+            s = self.steps.get(key)
+            out[label] = {"eager": 1, "replays": s.replays if s else 0,
+                          "launches": s.launches if s else {}, **(s.stats if s else {})}
+        return out

@@ -294,9 +294,10 @@ class BackendCarry(NamedTuple):
     the state after the motion-only BA, the keyframe decision and keyframe
     full BA; the frame's BA cost and iterations; the keyframe flag, the
     marginalization flag and the raw Schur complement (False and [0, 0]
-    without the marginalization prior). `ba_mod.psd_clip` of `schur` is
-    the one step of the OK frame with a host read: the graphed frame
-    (`graphs.py`) runs it between two graphs."""
+    without the marginalization prior). `ba_mod.psd_clip` of `schur` is a
+    launch of kernel K6, which cannot run under `torch.func.vmap`: the
+    batched step (`parallel/batched.py`) clips between its two vmapped
+    parts."""
 
     state: VIOState
     ba_cost: torch.Tensor
@@ -514,9 +515,10 @@ def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
                consts: VIOConstants, static: VIOStatic, shard=None):
     """The frame step after ORB extraction, for one sequence: the stages
     `stage_imu`, `stage_match`, `stage_ba` and `stage_pool` in turn, as
-    `track_head`, `psd_clip` and `track_tail`. Only the clip reads on the
-    host, and the head and tail map over sequences with `torch.func.vmap`
-    (`parallel/batched.py`). `ransac_u` holds the (stereo, temporal) [64,
+    `track_head`, `psd_clip` and `track_tail`. Nothing in it reads the
+    device on the host; the head and tail map over sequences with
+    `torch.func.vmap` (`parallel/batched.py`), the clip (a K6 launch)
+    between them. `ransac_u` holds the (stereo, temporal) [64,
     8] uniforms; `shard` splits the pool's Hamming tables over a model
     group. Returns (new_state, metrics), metrics as device tensors."""
     head = track_head(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts,

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
-           "moment_maps.cu", "stream_probe.cu", "png_unfilter.cu")
+           "moment_maps.cu", "stream_probe.cu", "small_linalg.cu", "png_unfilter.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
@@ -95,6 +95,10 @@ def library() -> ctypes.CDLL:
     lib.moment_maps_smem_bytes.restype = ctypes.c_longlong
     lib.stream_probe_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.stream_probe_launch.restype = i
+    lib.small_eigh_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.small_eigh_launch.restype = i
+    lib.small_svd3_launch.argtypes = [p, p, p, p, i, p]
+    lib.small_svd3_launch.restype = i
     lib.png_unfilter.argtypes = [p, i, i, p]
     lib.png_unfilter.restype = i
     return lib

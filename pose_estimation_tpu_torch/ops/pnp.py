@@ -4,14 +4,21 @@ Counterpart of `pose_estimation_tpu/ops/pnp.py` (the SfM bootstrap's
 `cv::solvePnPRansac`): 512 minimal-sample hypotheses solved at once by
 DLT or EPnP (or 128 three-point samples solved by P3P, each giving its up
 to 4 roots as hypotheses), scored against every correspondence with an
-8-px gate, the best polished by two rounds of weighted Gauss-Newton on its
-inliers. The returned (rvec, t) map object points into the camera frame:
-x_cam = R(rvec) X + t.
+8-px gate, the one with the least truncated squared error (MSAC, where the
+reference counts inliers) polished by two rounds of weighted Gauss-Newton
+on its inliers. The returned (rvec, t) map object points into the camera
+frame: x_cam = R(rvec) X + t.
 
 The draw takes its uniforms `u` [samples, sample size] (`uniform_shape`)
 or the index tensor `idx` itself as an argument; `ransac.sample_indices`
 turns uniforms into the indices `jax.random.choice(key, n, shape,
 p=mask)` draws.
+
+Nothing here reads the device on the host, so a CUDA graph captures the
+solve (`graphs.SolveGraphs`): the eigendecompositions and SVDs are K6
+(`ops/small_linalg.py`), the inverse and the solves report a failure in
+`info` (`inv_ex`, `solve_ex`) where `inv` and `solve` would check it on the
+host (`torch.linalg.det` reads nothing back and stays).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from pose_estimation_tpu_torch.ops import small_linalg
 from pose_estimation_tpu_torch.ops.ransac import sample_indices
 from pose_estimation_tpu_torch.utils import lie
 
@@ -44,7 +52,7 @@ class PnPResult(NamedTuple):
 def _proper_rotation(m):
     """(U diag(1, 1, det(U V^T)) V^T, singular values, that diagonal) of a
     batch of 3x3 matrices."""
-    uu, ss, vt = torch.linalg.svd(m)
+    uu, ss, vt = small_linalg.svd(m)
     det = torch.linalg.det(uu @ vt)
     d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
     return uu @ (d[..., None] * vt), ss, d
@@ -61,8 +69,13 @@ def _dlt_pose(obj, img_n):
     row_u = torch.cat([xh, zeros, -u * xh], dim=-1)              # [B, M, 12]
     row_v = torch.cat([zeros, xh, -v * xh], dim=-1)
     a = torch.cat([row_u, row_v], dim=1)                         # [B, 2M, 12]
-    _, vecs = torch.linalg.eigh(torch.einsum("bij,bik->bjk", a, a))
+    _, vecs = small_linalg.eigh(torch.einsum("bij,bik->bjk", a, a))
     p = vecs[..., 0].reshape(b, 3, 4)
+    # the null vector's sign is arbitrary, and for P = -|s| [R | t] the
+    # proper rotation of -|s| R is R with a half turn: take the sign with
+    # det(P[:, :3]) > 0, as OpenCV's DLT does (the JAX package does not, and
+    # loses the hypotheses whose eigensolver returned the other sign)
+    p = torch.where((torch.linalg.det(p[:, :, :3]) < 0)[:, None, None], -p, p)
     r, ss, d = _proper_rotation(p[:, :, :3])
     scale = torch.sum(ss * d, dim=-1) / 3.0
     safe = torch.where(scale.abs() < 1e-12, 1e-12, scale)
@@ -86,9 +99,6 @@ def _procrustes(src, dst):
     return r, mu_d[:, 0] - lie.mv(r, mu_s[:, 0])
 
 
-_PAIRS = [(i, j) for i in range(4) for j in range(i + 1, 4)]
-
-
 def _epnp_pose(obj, img_n):
     """Batched EPnP pose from M >= 4 points: four control points (centroid
     plus principal axes), the null space of the 2M x 12 projection system,
@@ -99,10 +109,10 @@ def _epnp_pose(obj, img_n):
     dtype, dev = obj.dtype, obj.device
     c0 = torch.mean(obj, dim=1, keepdim=True)
     centered = obj - c0
-    _, axes = torch.linalg.eigh(torch.einsum("bmi,bmj->bij", centered, centered) / m)
+    _, axes = small_linalg.eigh(torch.einsum("bmi,bmj->bij", centered, centered) / m)
     basis = axes.transpose(-1, -2)                               # rows = axes
     cw = torch.cat([c0, c0 + basis], dim=1)                      # [B, 4, 3]
-    basis_inv = torch.linalg.inv(basis + 1e-9 * torch.eye(3, dtype=dtype, device=dev))
+    basis_inv = torch.linalg.inv_ex(basis + 1e-9 * torch.eye(3, dtype=dtype, device=dev))[0]
     a123 = torch.einsum("bij,bmj->bmi", basis_inv.transpose(-1, -2), centered)
     alpha = torch.cat([1.0 - torch.sum(a123, dim=-1, keepdim=True), a123], dim=-1)
 
@@ -112,11 +122,11 @@ def _epnp_pose(obj, img_n):
     row_u = torch.stack([alpha, zeros, -u * alpha], dim=-1)     # [B, M, 4, 3]
     row_v = torch.stack([zeros, alpha, -v * alpha], dim=-1)
     mm = torch.cat([row_u.reshape(b, m, 12), row_v.reshape(b, m, 12)], dim=1)
-    _, vecs = torch.linalg.eigh(torch.einsum("bri,brj->bij", mm, mm))
+    _, vecs = small_linalg.eigh(torch.einsum("bri,brj->bij", mm, mm))
     v1, v2, v3 = (vecs[..., k].reshape(b, 4, 3) for k in range(3))
 
-    pi = torch.tensor([i for i, _ in _PAIRS], device=dev)
-    pj = torch.tensor([j for _, j in _PAIRS], device=dev)
+    # the six pairs (i < j) of the four control points, made on the device
+    pi, pj = torch.triu_indices(4, 4, 1, device=dev)
 
     def pair_diffs(q):                                           # [B, 6, 3]
         return q[:, pi] - q[:, pj]
@@ -136,7 +146,7 @@ def _epnp_pose(obj, img_n):
     def lstsq(a, y):
         ata = torch.einsum("bki,bkj->bij", a, a)
         ata = ata + 1e-12 * torch.eye(a.shape[-1], dtype=dtype, device=dev)
-        return torch.linalg.solve(ata, torch.einsum("bki,bk->bi", a, y)[..., None])[..., 0]
+        return torch.linalg.solve_ex(ata, torch.einsum("bki,bk->bi", a, y)[..., None])[0][..., 0]
 
     def dot(x, y):
         return torch.sum(x * y, dim=-1)
@@ -199,7 +209,7 @@ def gauss_newton_pose(obj, img_n, weights, rvec0, tvec0, iters: int = 10):
         jw = jfull * weights[:, None, None]
         h = torch.einsum("nia,nib->ab", jw, jfull) + 1e-9 * eye6
         g = torch.einsum("nia,ni->a", jw, res)
-        step = -torch.linalg.solve(h, g)
+        step = -torch.linalg.solve_ex(h, g)[0]
         rvec = lie.so3_log(r @ lie.so3_exp(step[:3]))
         t = t + step[3:]
     return rvec, t
@@ -231,14 +241,24 @@ def pnp_ransac(obj, px, mask, k_mat, u=None, threshold_px: float = 8.0,
         pose = {"dlt": _dlt_pose, "epnp": _epnp_pose}[solver]
         r_h, t_h = pose(obj[idx], img_n[idx])
 
-    # a NaN hypothesis compares false everywhere: no inliers, and the
-    # argmax runs over the integer counts, where NaN cannot win
-    inl = (_reproj_err2(r_h, t_h, obj, img_n) < thr_n2) & mask[None, :]
-    best = torch.argmax(torch.sum(inl, dim=1))
-    inliers = inl[best]
+    # The winner has the least truncated squared error (MSAC, Torr and
+    # Zisserman): an inlier adds its error, any other correspondence the
+    # gate's. The reference counts inliers, and in the SfM bootstrap, where
+    # far landmarks leave translation weakly observed, poses several cm
+    # apart keep nearly the same inlier count, so the count picks among
+    # them by a point or two (ROADMAP.md C15). A NaN hypothesis compares
+    # false everywhere: it adds the gate's error for every point and so
+    # cannot win over a finite one.
+    err2 = _reproj_err2(r_h, t_h, obj, img_n)
+    inl = (err2 < thr_n2) & mask[None, :]
+    cost = torch.sum(torch.where(inl, err2, thr_n2), dim=1)
+    # the winner taken by a one-element index tensor: a 0-dim one would be
+    # read on the host
+    best = torch.argmin(cost).reshape(1)
+    inliers = inl[best][0]
     # two rounds of GN on the current inlier set, re-deciding the inliers in
     # between (LO-RANSAC style)
-    rvec, tvec = lie.so3_log(r_h[best]), t_h[best]
+    rvec, tvec = lie.so3_log(r_h[best][0]), t_h[best][0]
     for _ in range(2):
         rvec, tvec = gauss_newton_pose(obj, img_n, inliers.to(obj.dtype), rvec, tvec,
                                        gn_iters)

@@ -7,9 +7,10 @@ all 2B images of a batched frame (one plane stack, so one launch of each
 kernel), and the rest of the step, `models.vio.track_step`, maps over the
 sequences with `torch.func.vmap`: every operation runs once for the whole
 batch. The step is `track_head` under vmap, the PSD clip of the B Schur
-complements (the step's one host read), then `track_tail` under vmap, so
-that `graphs.BatchedGraphs` captures the two vmapped parts as two
-graphs. Each sequence keeps its own keyframe decisions, pool and window;
+complements (kernel K6, a launch that cannot run under vmap, so it sits
+between the two vmapped parts), then `track_tail` under vmap; nothing in
+it reads the device on the host, and `graphs.BatchedGraphs` captures it
+as one graph. Each sequence keeps its own keyframe decisions, pool and window;
 the branches of the step are masks selected per sequence. The RANSAC
 uniforms come in as an argument, drawn by the caller from one generator
 per sequence.
@@ -102,37 +103,24 @@ def init_batched_state(static, batch: int, device):
     return tree_map(lambda a: a.expand((batch,) + a.shape).clone(), one)
 
 
-def make_batched_parts(consts, static, mesh: Mesh | None = None):
-    """(head, tail) of the batched step: head(state_B, imgs_l, imgs_r, gyr,
-    acc, mask, u_B) -> carry_B, one extraction for the 2B images and then
-    `track_head` under vmap; tail(carry_B, schur_psd_B) -> (state_B,
-    metrics_B), `track_tail` under vmap, with `vio.psd_clip` of
-    `carry_B.ba.schur` between them."""
+def make_batched_step(consts, static, mesh: Mesh | None = None):
+    """step(state_B, imgs_l [B, H, W], imgs_r, gyr [B, m, 3], acc, mask [B,
+    m], u_B [B, 2, 64, 8]) -> (state_B, metrics_B): one frame of B
+    sequences: one extraction for the 2B images, `track_head` under vmap,
+    `vio.psd_clip` of the B Schur complements, `track_tail` under vmap.
+    u_B holds each sequence's (stereo, temporal) RANSAC uniforms. With a
+    mesh, B is the rank's own lanes (the same on every rank of a model
+    group) and the pool's Hamming tables are split over the group."""
     shard = None if mesh is None else mesh.pool_shard
     vhead = torch.func.vmap(functools.partial(vio_mod.track_head, consts=consts,
                                               static=static, shard=shard))
     vtail = torch.func.vmap(functools.partial(vio_mod.track_tail, consts=consts,
                                               static=static))
 
-    def head(state_b, imgs_l, imgs_r, gyr, acc, mask, u_b):
+    def step(state_b, imgs_l, imgs_r, gyr, acc, mask, u_b):
         with torch.profiler.record_function("ok_step.extract"):
             feats_l, feats_r = vio_mod.extract_rectified_batch(imgs_l, imgs_r, consts, static)
-        return vhead(state_b, feats_l, feats_r, gyr, acc, mask, u_b)
-
-    return head, vtail
-
-
-def make_batched_step(consts, static, mesh: Mesh | None = None):
-    """step(state_B, imgs_l [B, H, W], imgs_r, gyr [B, m, 3], acc, mask [B,
-    m], u_B [B, 2, 64, 8]) -> (state_B, metrics_B): one frame of B
-    sequences, `make_batched_parts`' head, clip and tail. u_B holds each
-    sequence's (stereo, temporal) RANSAC uniforms. With a mesh, B is the
-    rank's own lanes (the same on every rank of a model group) and the
-    pool's Hamming tables are split over the group."""
-    head, tail = make_batched_parts(consts, static, mesh)
-
-    def step(state_b, imgs_l, imgs_r, gyr, acc, mask, u_b):
-        carry = head(state_b, imgs_l, imgs_r, gyr, acc, mask, u_b)
-        return tail(carry, vio_mod.psd_clip(carry.ba.schur))
+        carry = vhead(state_b, feats_l, feats_r, gyr, acc, mask, u_b)
+        return vtail(carry, vio_mod.psd_clip(carry.ba.schur))
 
     return step

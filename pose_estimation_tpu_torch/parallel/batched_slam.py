@@ -11,7 +11,7 @@ RANSAC uniforms from its own state machine's generator, so lane i of the
 batch continues as sequence i's own state machine would, up to the float32
 rounding of batched against single products (the extraction is equal bit
 for bit; the BA's sums may round apart). The lock-step frames run as
-captured graphs (`graphs.BatchedGraphs`, one pair for the batch size).
+captured graphs (`graphs.BatchedGraphs`, one graph for the batch size).
 """
 
 from __future__ import annotations

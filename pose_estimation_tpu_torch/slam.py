@@ -15,22 +15,30 @@ frame's metrics are also written as a JSON line (a host read per frame).
 host state a resumed run needs to continue identically, the random
 generator's state included.
 
-Every OK frame runs as captured CUDA graphs (`graphs.FrameGraphs`, the
-counterpart of the JAX package's jitted steps): the host copies the
-frame's images, IMU chunk and RANSAC uniforms into static buffers and
-replays, with the marginalization's PSD clip run eagerly between the
-frame's two graphs; the IMU chunks beyond one are integrated by a graph of
-their own. The live state is then the graphs' static buffers: an
-assignment of `self.vio` (a reinit, a recovery, `load_checkpoint`) is
-copied into them before the next replay, and what the host keeps across
-frames (records, the health check's pending frames, the keyframe history)
-is copied out of them (`graphs.snapshot`). On the CPU the same plumbing
-runs without capture. `graphed=False` runs the same steps eagerly, the
-yardstick the graphs are held to.
+Every device call runs as a captured CUDA graph, as each is one jitted
+program in the JAX package. The OK frame is one graph
+(`graphs.FrameGraphs`): the host copies the frame's images, IMU chunk and
+RANSAC uniforms into static buffers and replays; the IMU chunks beyond
+one are integrated by a graph of their own. The live state is then the
+graphs' static buffers: an assignment of `self.vio` (a reinit, a
+recovery, `load_checkpoint`) is copied into them before the next replay,
+and what the host keeps across frames (records, the health check's
+pending frames, the keyframe history) is copied out of them
+(`graphs.snapshot`). The other calls (`_seed_ref`, `sfm_step`, the SfM
+constraint's `finalize`, `full_init`, `bootstrap_frame`, the routine
+gravity refinement and the warm recovery) are graphs of
+`graphs.SolveGraphs`, one per call and input shape, each with its own
+memory, captured at the second call of that shape (the first runs
+eagerly): the host draws their uniforms eagerly, copies the inputs in,
+replays, and reads the plausibility gates after the replay, where the
+JAX package reads them. `_apply_alignment` and `_history_chain` stay
+eager, as in the JAX package. On the CPU the same plumbing runs without
+capture. `graphed=False` runs every call eagerly, the yardstick the
+graphs are held to.
 `staged=True` runs the OK frame as the four stages of `models.vio`
 (`stage_imu`, `stage_frontend`, `stage_ba`, `stage_pool`), each its own
 graph, which a caller can time one by one; the fused frame is the same
-code in two graphs.
+code in one graph.
 `set_viewer` attaches a live viewer (`live_viewer.LiveViewer`), fed after
 every OK frame (host reads of the window, and of the pool every
 `viewer_landmark_every` frames). `refresh_kf_hist` (off by default, as in
@@ -110,10 +118,11 @@ class VisualInertialSLAM:
                  graphed: bool = True):
         self.cfg = cfg
         self.verbose = verbose
-        # the OK-state steps as captured graphs (on the CPU the same static
+        # every device call as a captured graph (on the CPU the same static
         # buffers without capture); False runs them eagerly
         self.graphed = graphed
         self._graphs: graphs.FrameGraphs | None = None
+        self._solve_graphs: graphs.SolveGraphs | None = None
         # the OK frame as four calls (stage by stage timing) instead of the
         # fused ok_step; both run the same stages
         self.staged = staged
@@ -257,6 +266,18 @@ class VisualInertialSLAM:
             g.load_state(self.vio)
         return g
 
+    def _solve(self, name: str, fn, *args):
+        """`fn(*args)` as the graph `name` of the solve runner (made at first
+        use, and again after `self.static` or `self.consts` is replaced), or
+        eagerly with `graphed=False`. Its outputs are static: what the host
+        keeps past the next call of the same name is copied out."""
+        if not self.graphed:
+            return fn(*args)
+        g = self._solve_graphs
+        if g is None or g.static is not self.static or g.consts is not self.consts:
+            g = self._solve_graphs = graphs.SolveGraphs(self.consts, self.static, self.device)
+        return g.run(name, fn, *args)
+
     def _integrate(self, gyr, acc, mask):
         if self.graphed:
             g = self._frame_graphs()
@@ -287,8 +308,10 @@ class VisualInertialSLAM:
         return True
 
     def _seed_ref(self, img_l):
-        fl, _ = vio_mod.extract_rectified(img_l, img_l, self.consts, self.static)
-        return fl
+        c, s = self.consts, self.static
+        fl = self._solve("seed_ref", lambda im: vio_mod.extract_rectified(im, im, c, s)[0],
+                         img_l)
+        return graphs.snapshot(fl)
 
     # ---- per-frame processing (`process`)
 
@@ -308,11 +331,11 @@ class VisualInertialSLAM:
             if self._sfm_count < self.cfg.window_size - 1:
                 self._integrate(*self._pop_imu_chunk(img_ts))
                 ref = self._ref_feats
-                rvec, tvec, n_inl, feats_l = vio_mod.sfm_step(
-                    img_l, img_r, ref.desc, ref.xy, ref.valid,
-                    vio_mod.draw_sfm_uniforms(self._gen, self.device, self.static.pnp_solver),
-                    self.consts, self.static,
-                )
+                c, s = self.consts, self.static
+                u = vio_mod.draw_sfm_uniforms(self._gen, self.device, s.pnp_solver)
+                rvec, tvec, n_inl, feats_l = self._solve(
+                    "sfm_step", lambda *a: vio_mod.sfm_step(*a[:5], a[5:], c, s),
+                    img_l, img_r, ref.desc, ref.xy, ref.valid, *u)
                 r_np = rvec.double().cpu().numpy()
                 t_np = tvec.double().cpu().numpy()
                 n_inl = int(n_inl)
@@ -325,7 +348,7 @@ class VisualInertialSLAM:
                     self._push_sfm(r_np, t_np)
                     self.vio = self.vio._replace(preint=pre.init_state(self.device))
                     self._sfm_count += 1
-                    self._ref_feats = feats_l
+                    self._ref_feats = graphs.snapshot(feats_l)
                     if self.verbose:
                         print(f"[slam] SFM frame {self._sfm_count} accepted "
                               f"(|r|={np.linalg.norm(r_np):.4f}, "
@@ -500,9 +523,11 @@ class VisualInertialSLAM:
         self._sfm_p.append(Rb @ p_cb + pb)
         # a copy: the constraint shares tensors with the running
         # preintegration, which the next chunk overwrites in the graphs'
-        # buffers
-        self._sfm_ics.append(graphs.snapshot(pre.finalize(
-            self.vio.preint, self.vio.bg, self.vio.ba, self.consts.imu)))
+        # buffers, and the next replay of `finalize` its outputs
+        imu = self.consts.imu
+        self._sfm_ics.append(graphs.snapshot(self._solve(
+            "finalize", lambda p, bg, ba: pre.finalize(p, bg, ba, imu),
+            self.vio.preint, self.vio.bg, self.vio.ba)))
 
     def _initialize(self, img_l, img_r, img_ts):
         """The 4-stage initializer, its plausibility gates, the window
@@ -512,9 +537,12 @@ class VisualInertialSLAM:
         def t(a):
             return torch.as_tensor(np.stack(a), dtype=torch.float32, device=dev)
 
-        R, v, p, dbg, dba, g_est, ics = init_solvers.full_init(
-            t(self._sfm_R), t(self._sfm_p), _stack_ics(self._sfm_ics),
-            self._unit_g, self._axes, self._gravity)
+        unit_g, axes, gravity = self._unit_g, self._axes, self._gravity
+        # every output is used (copied by reseed_window, read by the gates)
+        # before the next replay of `full_init`
+        R, v, p, dbg, dba, g_est, ics = self._solve(
+            "full_init", lambda *a: init_solvers.full_init(*a, unit_g, axes, gravity),
+            t(self._sfm_R), t(self._sfm_p), _stack_ics(self._sfm_ics))
         new_bg = self.vio.bg + dbg
         new_ba = self.vio.ba + dba
         g_norm, v_max = torch.stack([
@@ -533,9 +561,13 @@ class VisualInertialSLAM:
 
         self.vio = self.vio._replace(win=reseed_window(self.vio.win, R, v, p, ics),
                                      preint=pre.init_state(dev), bg=new_bg, ba=new_ba)
-        self.vio, n_stereo = vio_mod.bootstrap_frame(
-            self.vio, img_l, img_r, vio_mod.draw_ransac_uniforms(self._gen, dev),
-            self.consts, self.static)
+        c, s = self.consts, self.static
+        u = vio_mod.draw_ransac_uniforms(self._gen, dev)
+        # the state stays in the graph's outputs until the next OK frame
+        # copies it into the frame graphs' buffers
+        self.vio, n_stereo = self._solve(
+            "bootstrap_frame", lambda st, il, ir, *u: vio_mod.bootstrap_frame(st, il, ir, u, c, s),
+            self.vio, img_l, img_r, *u)
         self._record(img_ts)
         self.state = State.OK
         if self.verbose:
@@ -602,9 +634,14 @@ class VisualInertialSLAM:
         keyframe chain and apply small, physically plausible corrections to
         all live state."""
         R, p, ics, ba_now = self._history_chain()
-        g_est, delta_r, dba = init_solvers.refine_gravity(
-            R, p, ics, self._unit_g, self._axes, self._gravity,
-            sigma_tilt=self.refine_sigmas[0], sigma_dba=self.refine_sigmas[1])
+        unit_g, axes, gravity = self._unit_g, self._axes, self._gravity
+        sigma_tilt, sigma_dba = self.refine_sigmas
+        # the outputs are read by the gates and _apply_alignment before the
+        # next replay
+        g_est, delta_r, dba = self._solve(
+            "refine", lambda *a: init_solvers.refine_gravity(
+                *a, unit_g, axes, gravity, sigma_tilt=sigma_tilt, sigma_dba=sigma_dba),
+            R, p, ics)
         g_norm, angle, dba_n, ba_after = torch.stack([
             torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
             torch.linalg.norm(ba_now + dba)]).tolist()
@@ -654,9 +691,11 @@ class VisualInertialSLAM:
         if len(self._kf_hist) < self.gravity_refine_min:
             return False
         R, p, ics, ba_now = self._history_chain()
-        g_est, delta_r, dba = init_solvers.refine_gravity(
-            R, p, ics, self._unit_g, self._axes, self._gravity,
-            sigma_tilt=5.0, sigma_dba=5.0, rounds=3)
+        unit_g, axes, gravity = self._unit_g, self._axes, self._gravity
+        g_est, delta_r, dba = self._solve(
+            "recover", lambda *a: init_solvers.refine_gravity(
+                *a, unit_g, axes, gravity, sigma_tilt=5.0, sigma_dba=5.0, rounds=3),
+            R, p, ics)
         g_norm, angle, dba_n, ba_new, ba_old = torch.stack([
             torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
             torch.linalg.norm(ba_now + dba), torch.linalg.norm(ba_now)]).tolist()

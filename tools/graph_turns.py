@@ -9,14 +9,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
   replay against their twins, the 16-frame EuRoC-width `ok_step` chain
   eager and graphed in turns (E G G E) with every frame bit-equal, the map
   front end, the staged graphs, `ok_scan`, the batched step at B = 8, each
-  graph's capture and instantiate seconds, nodes and pool bytes, the eager
-  PSD clip's cost and the busy share of graphed frames.
-- kitti: the state machine at KITTI width (`chip_smoke.py` phase 7's 6-s
-  world) graphed and eager in turns (G E E G, `--turns` times): the first
+  graph's capture and instantiate seconds, nodes and pool bytes and the
+  busy share of graphed frames.
+- kitti: the state machine at KITTI width (`chip_smoke.py` phase 7's
+  world, 6 s or `--kitti-s`) graphed and eager in turns (G E E G,
+  `--turns` times): the first
   OK frame's ms (a graphed run's warm-up and captures), the later frames'
   mean and median ms and their split by the host work each ran beside the
-  step (`chip_smoke.frame_times`), and whether each run's trajectory
-  equals the first's.
+  step (`chip_smoke.frame_times`; a graphed run's first refinement or
+  recovery frame of each chain length also captures its graph), each
+  solve graph's nodes, capture and instantiate seconds and replays, and
+  whether each run's trajectory equals the first's.
 - cli: the EuRoC directory of `chip_smoke.py` phase 10 (752x480, 2.5 s at
   20 Hz) through `run_euroc.main` (graphed) and through the CLI's body
   with `graphed=False` (`chip_smoke.replay_cli_body`), again with keyframe
@@ -49,6 +52,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default="chain,kitti,cli")
     ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--kitti-s", type=float, default=6.0)
     opts = ap.parse_args()
     parts = opts.parts.split(",")
 
@@ -70,6 +74,7 @@ def main() -> None:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     kernels.build()
+    smoke.count_replays()
     out = {"card": card}
 
     if "chain" in parts:
@@ -90,9 +95,13 @@ def main() -> None:
         first = None
         for mode in order:
             slam, _, frames_k, _ = smoke.run_state_machine(
-                kcfg, StereoInertialSim(kcfg, n_landmarks=150, seed=0), 6.0, 10, 0, dev,
-                graphed=mode == "graphed")
+                kcfg, StereoInertialSim(kcfg, n_landmarks=150, seed=0), opts.kitti_s, 10, 0,
+                dev, graphed=mode == "graphed")
             times = smoke.frame_times(frames_k)
+            if mode == "graphed":
+                times["solve_graphs"] = slam._solve_graphs.stats()
+                print("  " + "; ".join(smoke.graph_line(n, g)
+                                       for n, g in times["solve_graphs"].items()))
             same = first is None or np.array_equal(first, slam.trajectory)
             first = slam.trajectory if first is None else first
             runs[mode].append(times)

@@ -16,7 +16,8 @@ seeded EuRoC-width window at frame j, its RANSAC draws from generator
    whose position, score or level differ, the descriptor bits that differ
    on the others;
 2. the step after extraction on identical inputs (the batched features,
-   each lane's slice for the single step): `vmap(track_step)` against
+   each lane's slice for the single step): `track_step` batched
+   (`track_head` and `track_tail` under vmap, the clip between) against
    `track_step` per lane, op by op under a `TorchFunctionMode` that
    records the tensor outputs of every torch call (under vmap, the lane's
    slice of the physical batch). Per lane: the first call whose output
@@ -252,7 +253,14 @@ def main() -> None:
     gens = [torch.Generator(device=dev).manual_seed(100 + j) for j in range(b)]
     state = batched.stack_states([seeded_state(static, truth, dev, j) for j in range(b)])
     tstep = functools.partial(vio.track_step, consts=consts, static=static)
-    vstep = torch.func.vmap(tstep)
+    vhead = torch.func.vmap(functools.partial(vio.track_head, consts=consts, static=static))
+    vtail = torch.func.vmap(functools.partial(vio.track_tail, consts=consts, static=static))
+
+    def vstep(*args):
+        # the clip is a K6 launch, which cannot run under vmap: between the
+        # vmapped parts, as in parallel/batched.py
+        carry = vhead(*args)
+        return vtail(carry, vio.psd_clip(carry.ba.schur))
     per_frame, extraction, lanes, captured = [], [], [], None
     for i in range(opts.frames):
         u = torch.stack([torch.stack(vio.draw_ransac_uniforms(g, dev)) for g in gens])
