@@ -19,10 +19,13 @@ angles held to the float64 ones, K5 (stream probe) over its sweep of
 plane counts, heights and element types, and K6 (Jacobi eigh and 3x3 SVD,
 `ops/small_linalg.py`) at every shape of its paths (the PnP solvers'
 [512, 12, 12] and [512, 3, 3] in float32, the PSD clip's [1, 45, 45] and
-[8, 45, 45] in float64, the proper rotations' [512, 3, 3] SVD; the DLT's
-null vector against float64), beside `torch.linalg.eigh` and `svd`. It runs the eager `ok_step`, `sfm_step`
-(each PnP solver), `bootstrap_frame`, `full_init` and `refine_gravity`
-once each under `torch.cuda.set_sync_debug_mode("error")`. Then it drives,
+[8, 45, 45] in float64, and of the identity's Schur complement, which the
+frames that marginalize nothing clip; the proper rotations' [512, 3, 3]
+SVD; the DLT's null vector against float64; each clip's Jacobi rounds
+and device us a round), beside `torch.linalg.eigh` and `svd`. It runs
+the eager `ok_step`, `sfm_step` (each PnP solver), `bootstrap_frame`,
+`full_init` and `refine_gravity` once each under
+`torch.cuda.set_sync_debug_mode("error")`. Then it drives,
 each with the kernel counts set to 0 just before and read just after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
@@ -47,7 +50,9 @@ each with the kernel counts set to 0 just before and read just after:
   replay a fused frame, an `ok_scan` and a batched step, four a staged
   frame; each path's launches as replays x the graph's; each graph's
   capture and instantiate seconds, nodes and pool bytes and the busy
-  share of graphed frames;
+  share of graphed frames; the chain's frames split into marginalizing
+  keyframes and the others, each replay timed by CUDA events, and K6's
+  clip profiled inside two frames of each kind (`frames_by_kind`);
 - the host state machine (`slam.VisualInertialSLAM`, its OK frames as
   graphs) at KITTI width over a 6-s noisy simulation with the kitti
   profile: it must reach OK, launch K3 and K2 equally and K1 never in
@@ -269,7 +274,9 @@ FP64_INSTR_PER_S = 34e12 / 2
 # Phase 3b, K6 (ops/small_linalg.py) at the shapes of the paths: (label,
 # matrices, n, dtype); the PnP solvers' [512, ...] in float32 (the graded
 # stop), the PSD clip of one frame's and of BATCH lanes' Schur complements
-# in float64 (the stop at eps ||A||_F, as `ba.psd_clip` calls it). Each
+# in float64 (the stop at eps ||A||_F, as `ba.psd_clip` calls it), and the
+# clip of the identity's Schur complement, which every frame that
+# marginalizes nothing passes (models/vio.py:stage_ba_solve). Each
 # eigenvalue within K6_TOL[dtype] x ||A||_F of the twin's; the residual
 # ||A V - V diag(w)||_F and ||V^T V - I||_max within K6_RES_TOL[dtype]
 # (x ||A||_F for the residual); the clip (float64) within 1e-12 x ||S||_F
@@ -283,7 +290,7 @@ FP64_INSTR_PER_S = 34e12 / 2
 # 512 matrices and K6 0.105).
 K6_EIGH_SHAPES = (("dlt", 512, 12, "float32"), ("epnp_axes", 512, 3, "float32"),
                   ("epnp", 512, 12, "float32"), ("clip", 1, 45, "float64"),
-                  ("clip_batched", 8, 45, "float64"))
+                  ("clip_batched", 8, 45, "float64"), ("clip_identity", 1, 45, "float64"))
 K6_TOL = {"float32": 1e-5, "float64": 1e-12}
 K6_NULL_TOL = 16.0
 K6_RES_TOL = {"float32": 1e-4, "float64": 1e-11}
@@ -761,6 +768,60 @@ def graph_line(name, g) -> str:
             f"{g['launches']}, {g['replays']} replays")
 
 
+def frames_by_kind(runner, start, inputs, frames, dev, profiled_per_kind=2) -> dict:
+    """The graphed chain's frames by kind: a keyframe that tracks
+    marginalizes the window's oldest frame (the seeded window is full) and
+    clips its Schur complement on K6; any other frame clips the identity's
+    (models/vio.py:stage_ba_solve). `frames` run from `start` with seeded
+    draws, each replay between two CUDA events, enqueued back to back;
+    then again, the first `profiled_per_kind` frames of each kind each
+    profiled alone: its kernels' busy device ms (`device_activity`) and
+    K6's device ms (`eigh_kernel`, the clip). Returns per kind the frames,
+    event ms each and their mean, and the profiled frames' numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose_estimation_tpu_torch.models import vio
+
+    def chain(profile_at=()):
+        runner.load_state(start)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        torch.cuda.synchronize()
+        recs = []
+        for i in frames:
+            u = vio.draw_ransac_uniforms(gen, dev)
+            if i in profile_at:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    runner.ok_step(*inputs[i], u)
+                    torch.cuda.synchronize()
+                clip = [e.device_time for e in prof.events()
+                        if e.device_type.name == "CUDA" and "eigh_kernel" in e.name]
+                recs.append({"frame": i, "busy_ms": device_activity(prof)["busy_ms"],
+                             "clip_device_ms": sum(clip) / 1e3, "clip_launches": len(clip)})
+                continue
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            m = runner.ok_step(*inputs[i], u)
+            e1.record()
+            recs.append((e0, e1, (m["is_keyframe"] & (m["n_tracked"] > 0)).clone()))
+        torch.cuda.synchronize()
+        return recs
+
+    timed = chain()
+    kinds = {"marginalizing": [], "other": []}
+    for i, (e0, e1, marg) in zip(frames, timed):
+        kinds["marginalizing" if bool(marg) else "other"].append((i, e0.elapsed_time(e1)))
+    picked = {i for group in kinds.values() for i, _ in group[:profiled_per_kind]}
+    profiled = {r["frame"]: r for r in chain(picked) if isinstance(r, dict)}
+    out = {}
+    for kind, group in kinds.items():
+        ms = [x for _, x in group]
+        out[kind] = {"frames": [i for i, _ in group], "event_ms": ms,
+                     "mean_event_ms": float(np.mean(ms)) if ms else None,
+                     "profiled": [profiled[i] for i, _ in group[:profiled_per_kind]]}
+    return out
+
+
 def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -> dict:
     """Phase 4c, the captured graphs (`graphs.py`) against the eager steps
     in this call: K1 and K2 read out of a graph replay against their twins
@@ -1033,6 +1094,18 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
                device_summed_ms_per_frame=act["summed_ms"] / 4,
                busy_share_profiled=act["busy_ms"] / wall_ms, graph_replay_ms=replay_ms,
                graph_share_unprofiled=graphs_ms / g2[3])
+    kinds = frames_by_kind(runner, start, inputs, frames_s, dev)
+    for kind, k in kinds.items():
+        print(f"graphed chain, {kind} frames {k['frames']}: event ms "
+              + ", ".join(f"{x:.3f}" for x in k["event_ms"])
+              + (f" (mean {k['mean_event_ms']:.3f})" if k["event_ms"] else "")
+              + "; profiled alone: "
+              + ("; ".join(f"frame {r['frame']} busy {r['busy_ms']:.3f} device ms, K6 clip "
+                           f"{r['clip_device_ms']:.4f} in {r['clip_launches']} launch"
+                           for r in k["profiled"]) or "none"))
+        if any(r["clip_launches"] != 1 for r in k["profiled"]):
+            fail(f"graphed chain, {kind} frames: K6's clip not once a replay: {k['profiled']}")
+    out["frames_by_kind"] = kinds
 
     # the batched step, B = BATCH: eager against graphed
     lanes = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1453,8 +1526,12 @@ def k6_inputs(dev, label, b, n, dtype):
     normal matrices M^T M of 12 rows (DLT, EPnP) and point covariances
     (EPnP's axes) in float32; Schur complements of an information matrix
     (rank 30 of 45, its blocks scaled over three decades) with a small
-    indefinite part, as float32 rounding leaves them, in float64."""
+    indefinite part, as float32 rounding leaves them, in float64; for
+    "clip_identity" the Schur complement of the identity, as the frame step
+    builds it when it marginalizes nothing."""
     import torch
+
+    from pose_estimation_tpu_torch.backend import ba as ba_mod
 
     gen = torch.Generator(device=dev).manual_seed(sum(map(ord, label)))
     dt = getattr(torch, dtype)
@@ -1462,7 +1539,11 @@ def k6_inputs(dev, label, b, n, dtype):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
 
-    if label.startswith("clip"):
+    if label == "clip_identity":
+        wsize = n // 15 + 1
+        eye = torch.eye(15 * wsize, dtype=torch.float32, device=dev)
+        a = ba_mod.marg_schur(eye, wsize).expand(b, n, n).double()
+    elif label.startswith("clip"):
         x = randn(b, n, 30) * torch.logspace(0, 3, n, device=dev, dtype=torch.float64)[:, None]
         e = randn(b, n, n)
         a = x @ x.transpose(-1, -2) + 1e-3 * (e + e.transpose(-1, -2))
@@ -1522,6 +1603,12 @@ def dlt_null_check(dev, b=512) -> dict:
     return rec
 
 
+def rec_us_per_round(rounds, dev_ms):
+    """Device us a Jacobi round of the slowest matrix of a launch, or None
+    when it took no round."""
+    return dev_ms * 1e3 / max(rounds) if max(rounds) else None
+
+
 def k6_checks(dev) -> dict:
     """Phase 3b: K6 (`ops/small_linalg.py`) against its twin on the card at
     every shape of its paths (`K6_EIGH_SHAPES`, and the proper rotations'
@@ -1529,7 +1616,9 @@ def k6_checks(dev) -> dict:
     orthogonality, the PSD clip in float64, the SVD's reconstruction; each
     timed by CUDA events and the profiler's device time beside the twin
     and the library call (`torch.linalg.eigh` / `svd`, eager), with its
-    bound. Returns {"eigh": {shape label: record}, "svd": record}."""
+    bound; the clip's Jacobi rounds (`small_linalg.eigh_rounds`, a launch
+    of its own) and device us a round of the slowest matrix. Returns
+    {"eigh": {shape label: record}, "svd": record}."""
     import torch
 
     from pose_estimation_tpu_torch.ops import small_linalg
@@ -1562,12 +1651,18 @@ def k6_checks(dev) -> dict:
             if not clip_err <= 1e-12:
                 fail(f"K6 eigh {label}: the clip {clip_err:.3g} x ||S|| from the twin's")
         es = a.element_size()
+        rounds = small_linalg.eigh_rounds(a, graded=graded)[2].tolist()
         rec.update(
             ms=cuda_ms(lambda: small_linalg.eigh(a, graded=graded)),
             device_ms=device_ms(lambda: small_linalg.eigh(a, graded=graded), "eigh_kernel"),
             plain_ms=cuda_ms(lambda: small_linalg.eigh_plain(a), reps=5, warm=1),
-            lib_ms=cuda_ms(lambda: torch.linalg.eigh(a), reps=5, warm=1))
-        rec["bound"], rec["by"] = bound(b * (2 * n * n + n) * es, b * eigh_instr(n),
+            lib_ms=cuda_ms(lambda: torch.linalg.eigh(a), reps=5, warm=1),
+            rounds_max=max(rounds), sweeps_max=max(rounds) / (n + (n & 1) - 1))
+        rec["us_per_round"] = rec_us_per_round(rounds, rec["device_ms"])
+        # a diagonal input needs no rotation: the work its data needs is the
+        # sort's n compares a column
+        instr = b * n * n if label == "clip_identity" else b * eigh_instr(n)
+        rec["bound"], rec["by"] = bound(b * (2 * n * n + n) * es, instr,
                                         FP64_INSTR_PER_S if dtype == "float64"
                                         else FP32_INSTR_PER_S)
         print(f"K6 eigh {label} [{b}, {n}, {n}] {dtype}: eigenvalues within {w_err:.3g} x "
@@ -1575,7 +1670,10 @@ def k6_checks(dev) -> dict:
               + (f", clip {rec['clip_err_rel']:.3g} x ||S||" if "clip_err_rel" in rec else "")
               + f"; {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin "
               f"{rec['plain_ms']:.4f}, torch.linalg.eigh {rec['lib_ms']:.4f}, bound "
-              f"{rec['bound']:.6f} ({rec['by']})")
+              f"{rec['bound']:.6f} ({rec['by']}); rounds, slowest matrix {rec['rounds_max']} "
+              f"({rec['sweeps_max']:.2f} sweeps)"
+              + (f", {rec['us_per_round']:.3f} device us a round" if rec["us_per_round"]
+                 else ""))
         res["eigh"][label] = rec
     res["dlt_null"] = dlt_null_check(dev)
 

@@ -95,7 +95,7 @@ def library() -> ctypes.CDLL:
     lib.moment_maps_smem_bytes.restype = ctypes.c_longlong
     lib.stream_probe_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.stream_probe_launch.restype = i
-    lib.small_eigh_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.small_eigh_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.small_eigh_launch.restype = i
     lib.small_svd3_launch.argtypes = [p, p, p, p, i, p]
     lib.small_svd3_launch.restype = i

@@ -189,6 +189,28 @@ def _reproj_err2(r, t, obj, img_n):
     return torch.where(xc[..., 2] <= 0, 1e12, err)
 
 
+def msac_winner(r_h, t_h, obj, img_n, mask, thr_n2):
+    """(index [1] of the winning hypothesis, its inliers [N]) of the poses
+    r_h [B, 3, 3], t_h [B, 3] against obj [N, 3] <-> img_n [N, 2] where
+    `mask` holds, with the squared gate thr_n2 in normalized coordinates.
+
+    The winner has the least truncated squared error (MSAC, Torr and
+    Zisserman): an inlier adds its error, any other correspondence the
+    gate's. The reference counts inliers, and in the SfM bootstrap, where
+    far landmarks leave translation weakly observed, poses several cm
+    apart keep nearly the same inlier count, so the count picks among them
+    by a point or two (ROADMAP.md C15). A NaN hypothesis compares false
+    everywhere: it adds the gate's error for every point and so cannot win
+    over a finite one."""
+    err2 = _reproj_err2(r_h, t_h, obj, img_n)
+    inl = (err2 < thr_n2) & mask[None, :]
+    cost = torch.sum(torch.where(inl, err2, thr_n2), dim=1)
+    # the winner taken by a one-element index tensor: a 0-dim one would be
+    # read on the host
+    best = torch.argmin(cost).reshape(1)
+    return best, inl[best][0]
+
+
 def gauss_newton_pose(obj, img_n, weights, rvec0, tvec0, iters: int = 10):
     """Weighted Gauss-Newton on (rvec, t), residual in normalized image
     coordinates, rotation perturbed on the right: R exp(w)."""
@@ -241,21 +263,7 @@ def pnp_ransac(obj, px, mask, k_mat, u=None, threshold_px: float = 8.0,
         pose = {"dlt": _dlt_pose, "epnp": _epnp_pose}[solver]
         r_h, t_h = pose(obj[idx], img_n[idx])
 
-    # The winner has the least truncated squared error (MSAC, Torr and
-    # Zisserman): an inlier adds its error, any other correspondence the
-    # gate's. The reference counts inliers, and in the SfM bootstrap, where
-    # far landmarks leave translation weakly observed, poses several cm
-    # apart keep nearly the same inlier count, so the count picks among
-    # them by a point or two (ROADMAP.md C15). A NaN hypothesis compares
-    # false everywhere: it adds the gate's error for every point and so
-    # cannot win over a finite one.
-    err2 = _reproj_err2(r_h, t_h, obj, img_n)
-    inl = (err2 < thr_n2) & mask[None, :]
-    cost = torch.sum(torch.where(inl, err2, thr_n2), dim=1)
-    # the winner taken by a one-element index tensor: a 0-dim one would be
-    # read on the host
-    best = torch.argmin(cost).reshape(1)
-    inliers = inl[best][0]
+    best, inliers = msac_winner(r_h, t_h, obj, img_n, mask, thr_n2)
     # two rounds of GN on the current inlier set, re-deciding the inliers in
     # between (LO-RANSAC style)
     rvec, tvec = lie.so3_log(r_h[best][0]), t_h[best][0]

@@ -25,7 +25,8 @@ the ordering and signs that the library calls leave open:
   orthonormal for every A, rank 2 and rank 1 included, and the proper
   rotation U diag(1, 1, det(U V^T)) V^T of `ops/pnp.py` is a rotation.
 
-A matrix holding a NaN gives NaN throughout (the library calls raise).
+A matrix holding a NaN or an infinity gives NaN throughout (the library
+calls raise).
 """
 
 from __future__ import annotations
@@ -105,19 +106,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def eigh(a: torch.Tensor, graded: bool = True):
-    """(eigenvalues [..., n] ascending, eigenvectors [..., n, n] as columns)
-    of the symmetric matrices a [..., n, n] (their lower triangles), n <=
-    64, float32 or float64, with canonical signs.
-
-    A CUDA tensor launches K6's Jacobi kernel, one block a matrix with
-    the matrix and its eigenvector accumulator in shared memory (or
-    raises); a CPU tensor runs `eigh_plain`. `graded` keeps the small
-    eigenpairs accurate to their own size (the kernel's relative stop, for
-    the PnP solvers' null vectors); otherwise the kernel stops at
-    off-diagonals of eps ||A||_F, in fewer sweeps (the PSD clip)."""
-    if not a.is_cuda:
-        return eigh_plain(a)
+def _eigh_launch(a: torch.Tensor, graded: bool, rounds: torch.Tensor | None = None):
+    """Launch K6's eigh on the CUDA tensor a [..., n, n] (or raise), each
+    matrix's rounds into `rounds` if given. Returns (w, v, launched)."""
     n = a.shape[-1]
     if (a.ndim < 2 or a.shape[-2] != n or not 0 < n <= MAX_N
             or a.dtype not in (torch.float32, torch.float64)):
@@ -128,14 +119,44 @@ def eigh(a: torch.Tensor, graded: bool = True):
     v = torch.empty_like(flat)
     if flat.shape[0]:
         err = kernels.library().small_eigh_launch(
-            flat.data_ptr(), w.data_ptr(), v.data_ptr(), flat.shape[0], n,
+            flat.data_ptr(), w.data_ptr(), v.data_ptr(),
+            None if rounds is None else rounds.data_ptr(), flat.shape[0], n,
             int(a.dtype == torch.float64), int(graded), _stream(a))
         kernels.check(err, "eigh")
-        eigh.launches += 1
-    return w.reshape(a.shape[:-1]), v.reshape(a.shape)
+    return w.reshape(a.shape[:-1]), v.reshape(a.shape), bool(flat.shape[0])
+
+
+def eigh(a: torch.Tensor, graded: bool = True):
+    """(eigenvalues [..., n] ascending, eigenvectors [..., n, n] as columns)
+    of the symmetric matrices a [..., n, n] (their lower triangles), n <=
+    64, float32 or float64, with canonical signs.
+
+    A CUDA tensor launches K6's Jacobi kernel, one block a matrix with
+    the matrix and its eigenvector accumulator in shared memory, one
+    barrier-separated pass a round (or raises); a CPU tensor runs
+    `eigh_plain`. `graded` keeps the small eigenpairs accurate to their own
+    size (the kernel's relative stop, for the PnP solvers' null vectors);
+    otherwise the kernel stops at off-diagonals of eps ||A||_F, in fewer
+    rounds (the PSD clip)."""
+    if not a.is_cuda:
+        return eigh_plain(a)
+    w, v, launched = _eigh_launch(a, graded)
+    eigh.launches += launched
+    return w, v
 
 
 eigh.launches = 0
+
+
+def eigh_rounds(a: torch.Tensor, graded: bool = True):
+    """`eigh` of a CUDA tensor with the number of Jacobi rounds each matrix
+    took ([...] int32; a sweep is n - 1 rounds, n rounded up to even), for
+    measurement: not counted in `eigh.launches`."""
+    if not a.is_cuda:
+        raise ValueError("eigh_rounds measures the kernel: it takes a CUDA tensor")
+    rounds = torch.empty(a.shape[:-2], dtype=torch.int32, device=a.device)
+    w, v, _ = _eigh_launch(a, graded, rounds)
+    return w, v, rounds
 
 
 def svd(a: torch.Tensor):
