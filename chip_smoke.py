@@ -25,7 +25,9 @@ SVD; the DLT's null vector against float64; each clip's Jacobi rounds
 and device us a round), beside `torch.linalg.eigh` and `svd`. It runs
 the eager `ok_step`, `sfm_step` (each PnP solver), `bootstrap_frame`,
 `full_init` and `refine_gravity` once each under
-`torch.cuda.set_sync_debug_mode("error")`. Then it drives,
+`torch.cuda.set_sync_debug_mode("error")`, and holds the log-depth IMU
+preintegration (`integrate_chunk`) to its per-sample loop over 16 chained
+EuRoC chunks (phase 3d). Then it drives,
 each with the kernel counts set to 0 just before and read just after:
 
 - `ok_step` over 16 simulated EuRoC-scale frames from a window seeded at
@@ -45,8 +47,10 @@ each with the kernel counts set to 0 just before and read just after:
   a graph replay against their twins on another frame's stack than the
   capture's; phase 4's chain eager and graphed in turns, every frame's
   metrics and the final state bit-equal, on the kernel path and on the
-  map front end with K4; the staged graphs, `ok_scan` as one graph and
-  the batched step of 8 lanes, each bit-equal to its eager run; one
+  map front end with K4; the staged graphs, the overflow chunks'
+  `integrate` graph, `ok_scan` as one graph and the batched step of 8
+  lanes, each bit-equal to its eager run; the `imu`, `frame`,
+  `integrate` and `scan` graphs' nodes beside the staged ms; one
   replay a fused frame, an `ok_scan` and a batched step, four a staged
   frame; each path's launches as replays x the graph's; each graph's
   capture and instantiate seconds, nodes and pool bytes and the busy
@@ -132,12 +136,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import multiprocessing
 import subprocess
 import sys
 import time
+import traceback
 import types
 
 import numpy as np
@@ -328,6 +334,16 @@ ENTRY_EUROC = dict(dataset="euroc", width=752, height=480, camera_frequency=20,
 # The header of the JAX package's `save_results` (its states.csv), whose
 # 17 columns every row of the port's must have.
 STATES_CSV_HEADER = "timestamp,qw,qx,qy,qz,px,py,pz,vx,vy,vz,bgx,bgy,bgz,bax,bay,baz"
+
+# Phase 3d, the IMU preintegration (imu/preintegration.py): the log-depth
+# `integrate_chunk`, which every path runs, against its per-sample loop
+# `integrate_chunk_sequential`, over phase 4's N_FRAMES chunks chained from
+# the seeded state; each field within IMU_SCAN_TOL of its largest |entry|
+# (float32: the loop reassociates every product and sums dt sample by
+# sample; tests/test_torch_geometry.py holds the loop to the JAX package's
+# oracle at the same 1e-5, tests/test_torch_preintegration.py the scan to
+# the JAX package's scan at 1e-6).
+IMU_SCAN_TOL = 1e-5
 
 # Phase 4b, the staged OK path: frames WARMUP..N_FRAMES-1 of phase 4's
 # kernel-path chain (generator seed 0) through the four stages of
@@ -830,7 +846,8 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     (E G G E), every frame's metrics and the final state bit for bit, on
     the kernel path and on the map front end with K4; the staged graphs
     and `ok_scan`'s replays from the chain's state after the warm-up
-    against the fused eager frames; the batched step of BATCH lanes
+    against the fused eager frames; the overflow chunks' `integrate` graph
+    against the eager `integrate_chunk`; the batched step of BATCH lanes
     graphed against eager over BATCH_FRAMES frames; one replay a fused
     frame, a batched step and an `ok_scan`, four a staged frame; each
     path's launches as replays x the graph's launches; each graph's
@@ -1024,7 +1041,33 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     if (st_launches["fast_select"], st_launches["sample_patches"]) != (len(frames_s) + 1,) * 2:
         fail(f"staged graphs: launches {st_launches}, expected K1 and K2 {len(frames_s) + 1} "
              "times (the replays and the warm-up)")
-    out["staged"] = {"stage_ms": split, "launches": st_launches, "graphs": staged.stats()}
+    staged_stats = staged.stats()
+    for name, g in staged_stats.items():
+        print("  graph " + graph_line(name, g))
+    out["staged"] = {"stage_ms": split, "launches": st_launches, "graphs": staged_stats}
+
+    # the overflow chunks' graph (`integrate`) on the staged runner's state,
+    # against the eager `integrate_chunk` from the same state
+    from pose_estimation_tpu_torch.imu import preintegration as pre
+
+    base = graphs.snapshot(staged.state)
+    ref_pre = base.preint
+    for i in frames_s[:3]:
+        ref_pre = pre.integrate_chunk(ref_pre, *inputs[i][2:5], base.bg, base.ba, consts.imu)
+    before = REPLAYS["n"]
+    for i in frames_s[:3]:
+        staged.integrate(*inputs[i][2:5])
+    int_replays = REPLAYS["n"] - before
+    int_same = equal(ref_pre, staged.state.preint)
+    int_stats = staged.stats()["integrate"]
+    print("integrate graph (3 overflow chunks on the staged state): "
+          + ("bit-equal to the eager integrate_chunk" if int_same else "DIFFERS")
+          + "; graph " + graph_line("integrate", int_stats))
+    if not int_same:
+        fail("the integrate graph differs from the eager integrate_chunk")
+    if int_replays != 3:
+        fail(f"the integrate graph: {int_replays} replays in 3 chunks (one a chunk)")
+    out["integrate"] = {"graph": int_stats}
     del staged
 
     # ok_scan as one graph of SCAN_FRAMES frames
@@ -1062,6 +1105,12 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
              "warm-up)")
     out["ok_scan"] = {"ms_per_frame": scan_ms, "replayed_ms_per_frame": scan_replay_ms,
                       "launches": scan_launches, "graph": runner.stats()["scan"]}
+    nodes = {"imu": staged_stats["imu"]["nodes"], "frame": fused_stats["frame"]["nodes"],
+             "integrate": int_stats["nodes"], "scan": runner.stats()["scan"]["nodes"]}
+    print(f"graph nodes: imu {nodes['imu']}, frame {nodes['frame']}, integrate "
+          f"{nodes['integrate']}, scan {nodes['scan']} ({SCAN_FRAMES} frames); staged ms, "
+          "each stage synchronized: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    out["graph_nodes"] = nodes
 
     # the device's busy share of graphed frames under the profiler (the
     # union of its kernels' intervals over the profiled frames' host time),
@@ -1357,7 +1406,18 @@ def protocol_worker(job):
     draws, device, front end) -> its record, checked by the caller. `run`
     names a world of the accuracy protocol, "A2-p3p": world A2 with the
     P3P bootstrap, or "KITTI-dense": the KITTI-width rig with the frames
-    remapped before detection. The front end is "kernel" or "map"."""
+    remapped before detection. The front end is "kernel" or "map". A run
+    that raises returns its traceback under "error", so that the other
+    runs are still checked and the failure is printed whole."""
+    try:
+        return protocol_run(job)
+    except Exception:
+        run, seed, _, front = job
+        return {"run": run, "seed": seed, "front": front, "error": traceback.format_exc()}
+
+
+def protocol_run(job):
+    """`protocol_worker`'s run, which may raise."""
     import torch
 
     from pose_estimation_tpu_torch.testing import (StereoInertialSim, protocol_world,
@@ -1800,6 +1860,71 @@ def sync_checks(dev, cfg, consts, static, inputs, truth) -> dict:
     print("no synchronization under set_sync_debug_mode('error'): "
           + ", ".join(f"{k} {v:.3f} s" for k, v in out.items()))
     return out
+
+
+def imu_checks(dev, consts, static, inputs, truth) -> dict:
+    """Phase 3d (see IMU_SCAN_TOL): `integrate_chunk` against
+    `integrate_chunk_sequential` on the card over phase 4's chunks chained
+    from the seeded state and biases; each form's eager ms a chunk (CUDA
+    events); one chunk of the scan captured alone as a graph, its nodes and
+    device ms a replay, its output bit-equal to the eager call's. Returns
+    the phase's numbers."""
+    import torch
+
+    from pose_estimation_tpu_torch import graphs
+    from pose_estimation_tpu_torch.imu import preintegration as pre
+    from pose_estimation_tpu_torch.testing import seeded_state
+
+    state = seeded_state(static, truth, dev)
+    bg, ba, imu = state.bg, state.ba, consts.imu
+    chunks = [inp[2:5] for inp in inputs]
+    forms = {"scan": pre.integrate_chunk, "loop": pre.integrate_chunk_sequential}
+    runs = {}
+    for name, fn in forms.items():
+        st = state.preint
+        for c in chunks:
+            st = fn(st, *c, bg, ba, imu)
+        runs[name] = st
+    err = {field: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for field, a, b in zip(pre.PreintState._fields, runs["scan"], runs["loop"])}
+    worst = max(err, key=err.get)
+    if not all(bool(torch.isfinite(t).all()) for t in runs["scan"]):
+        fail("integrate_chunk: non-finite state over the chained chunks")
+    if err[worst] > IMU_SCAN_TOL:
+        fail(f"integrate_chunk against integrate_chunk_sequential: {worst} off by "
+             f"{err[worst]:.3g} of its largest entry (bound {IMU_SCAN_TOL})")
+    ms = {name: cuda_ms(lambda fn=fn: fn(state.preint, *chunks[0], bg, ba, imu), reps=10,
+                        warm=2) for name, fn in forms.items()}
+
+    def one(st, g, a, m):
+        return pre.integrate_chunk(st, g, a, m, bg, ba, imu)
+
+    # whether the cyclic garbage collector could run during the capture
+    collecting = []
+
+    def captured(*a):
+        collecting.append(gc.isenabled())
+        return one(*a)
+
+    args = (state.preint, *chunks[0])
+    graphs.warm_up(one, args, dev)
+    step = graphs.CapturedStep("integrate_chunk", captured, args, dev)
+    same = all(torch.equal(x, y) for x, y in zip(step(), one(*args)))
+    if collecting != [False] or not gc.isenabled():
+        fail(f"the garbage collector during the capture: {collecting} (held off), after "
+             f"it: {gc.isenabled()} (running again)")
+    replay_ms = cuda_ms(step.graph.replay, reps=20, warm=2)
+    m_valid = int(chunks[0][2].sum())
+    print(f"IMU preintegration, {len(chunks)} chained EuRoC chunks ({chunks[0][0].shape[0]} "
+          f"samples, {m_valid} valid): integrate_chunk within {err[worst]:.3g} of "
+          f"integrate_chunk_sequential ({worst}; bound {IMU_SCAN_TOL} of each field's largest "
+          f"entry); eager ms a chunk: scan {ms['scan']:.3f}, loop {ms['loop']:.3f}; one chunk "
+          f"captured: {step.stats['nodes']} nodes, {replay_ms:.4f} device ms a replay, "
+          + ("bit-equal to the eager call" if same else "DIFFERS from the eager call"))
+    if not same:
+        fail("integrate_chunk captured alone differs from its eager call")
+    return {"rel_err": err, "eager_ms": ms, "graph_nodes": step.stats["nodes"],
+            "graph_replay_ms": replay_ms}
 
 
 def kernel_checks(dev, cfg, frame, kcfg) -> dict:
@@ -2699,6 +2824,9 @@ def main() -> None:
     syncs = sync_checks(dev, cfg, consts, static, inputs, truth)
     count_replays()
 
+    # ---- phase 3d: the log-depth IMU preintegration against its loop
+    imu = imu_checks(dev, consts, static, inputs, truth)
+
     def run_chain(label, static, seed=0):
         """N_FRAMES chained ok_steps from the seeded window, the RANSAC
         draws from `seed`. Returns (launches, ms per frame after the
@@ -2937,14 +3065,16 @@ def main() -> None:
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(PROTOCOL_WORKERS) as pool:
-        try:
-            results = pool.map(protocol_worker, jobs, chunksize=1)
-        except Exception as exc:  # a run raised in its worker
-            defer(f"accuracy protocol: a run raised {exc!r}")
+        results = pool.map(protocol_worker, jobs, chunksize=1)
         pool.close()
         pool.join()
     print(f"accuracy protocol: {len(jobs)} runs in {PROTOCOL_WORKERS} worker processes, "
           f"{time.perf_counter() - t0:.1f} s")
+    for r in results:
+        if "error" in r:
+            defer(f"accuracy {r['run']} seed {r['seed']} ({r['front']} front end) raised:\n"
+                  + r["error"])
+    results = [r for r in results if "error" not in r]
     for r in results:
         name = f"{r['run']} seed {r['seed']}" + (" (map front end)" if r["front"] == "map"
                                                   else "")
@@ -3091,7 +3221,7 @@ def main() -> None:
         "kitti_median_ms": {"graphed": kitti_median, "eager": kitti_eager_median},
         "kitti_frame_times": {"graphed": k_times, "eager": ke_times},
         "entry_points": entry, "staged": staged, "graphed": graphed, "mesh": mesh,
-        "sync_checks_s": syncs,
+        "sync_checks_s": syncs, "imu_preintegration": imu,
         "batched": {"batch": BATCH, "ms_per_step": batched_res["ms_per_step"],
                     "frames_per_s": batched_res["frames_per_s"],
                     "lane_p_err": batched_res["lane_p_err"],

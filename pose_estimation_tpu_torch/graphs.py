@@ -63,12 +63,17 @@ each call runs the function on the static buffers and copies its outputs
 into static outputs, so an output kept past the next call is overwritten
 there too. On CUDA a capture that fails raises, naming the step and the
 line of the port where it failed; nothing runs eagerly in its place.
+Python's cyclic garbage collector is held off while a step captures: a
+dead runner in a reference cycle that it freed there would destroy its
+graphs while the stream captures, which CUDA refuses and which breaks the
+capture.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import time
 import traceback
 
@@ -202,6 +207,8 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         mode = torch.cuda.get_sync_debug_mode()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 # an operation that would wait for the device raises at once,
@@ -214,6 +221,9 @@ class CapturedStep:
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed at "
                                f"{_where(exc)}: {exc}") from exc
+        finally:
+            if collecting:
+                gc.enable()
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()

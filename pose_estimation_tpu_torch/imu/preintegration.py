@@ -1,11 +1,17 @@
 """On-manifold IMU preintegration (Forster et al.).
 
-Counterpart of `pose_estimation_tpu/imu/preintegration.py`. The JAX package
-integrates a chunk with associative scans, a TPU layout choice; here the
-per-sample recurrences run as a loop over the (at most `imu_chunk`) samples,
-exactly as its oracle `integrate_chunk_sequential` does. The per-sample
-rotation increments and right Jacobians are computed for the whole chunk at
-once before the loop. Masked (padding) samples leave the state untouched.
+Counterpart of `pose_estimation_tpu/imu/preintegration.py`. `integrate_chunk`
+is the JAX package's log-depth form: the rotation chain is a prefix product
+(`utils.tree.associative_scan`, in JAX's association order), (dv, dp) and
+the accelerometer-bias Jacobians are cumulative sums once the rotation
+prefixes are known, and the gyroscope-bias Jacobians and the covariance
+come out of one pairwise tree reduction of per-sample (A, b, Q) elements.
+So a chunk of M samples is a few batched [M, ...] products at log2(M)
+depth, with no loop over the samples and no host read. Masked (padding)
+samples are identity elements and leave the state untouched.
+`integrate_chunk_sequential` is the per-sample loop of the reference
+recurrences, the JAX package's oracle: tests hold the two against each
+other; no path of the system calls it.
 
 Tangent order of the 15-dof error state: [dr, dv, dp, dbg, dba].
 """
@@ -17,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from pose_estimation_tpu_torch.utils import lie
+from pose_estimation_tpu_torch.utils.tree import associative_scan
 
 
 class ImuParams(NamedTuple):
@@ -78,7 +85,7 @@ def init_state(device, dtype=torch.float32) -> PreintState:
     )
 
 
-def integrate_chunk(
+def integrate_chunk_sequential(
     state: PreintState,
     gyr: torch.Tensor,   # [M, 3]
     acc: torch.Tensor,   # [M, 3]
@@ -88,7 +95,8 @@ def integrate_chunk(
     params: ImuParams,
 ) -> PreintState:
     """Reference recurrences of `ImuPreintegrator::processImu`, sample by
-    sample (integrate, propagateNoise, biasJacobians)."""
+    sample (integrate, propagateNoise, biasJacobians): the oracle of
+    `integrate_chunk`."""
     dt = params.dt
     dt2 = dt * dt
     dtype, device = gyr.dtype, gyr.device
@@ -139,6 +147,119 @@ def integrate_chunk(
         m = mask[k]
         s = PreintState(*(torch.where(m, n, o) for n, o in zip(new, s)))
     return s
+
+
+def _grid(blocks) -> torch.Tensor:
+    """[M, 9, 9] from a 3 x 3 grid (row-major list) of [M, 3, 3] blocks."""
+    t = torch.stack(blocks, dim=1).unflatten(1, (3, 3))   # [M, i, j, r, c]
+    return t.transpose(2, 3).flatten(3, 4).flatten(1, 2)
+
+
+def _fused_combine(c1, c2):
+    """(A, b, Q) of two consecutive spans, c1 first: the bias-Jacobian
+    recurrence X' = A X + b and the covariance's C' = A C A^T + Q."""
+    a1, b1, q1 = c1
+    a2, b2, q2 = c2
+    return a2 @ a1, a2 @ b1 + b2, a2 @ q1 @ a2.transpose(-1, -2) + q2
+
+
+def integrate_chunk(
+    state: PreintState,
+    gyr: torch.Tensor,   # [M, 3]
+    acc: torch.Tensor,   # [M, 3]
+    mask: torch.Tensor,  # [M] bool
+    bg: torch.Tensor,    # [3]
+    ba: torch.Tensor,    # [3]
+    params: ImuParams,
+) -> PreintState:
+    """The recurrences of `integrate_chunk_sequential` at log2(M) depth
+    (the JAX package's `integrate_chunk`, in its order of operations):
+
+    * the rotation prefixes are an associative scan of 3x3 products;
+    * (dv, dp) and (d_v_ba, d_p_ba) are cumulative sums of per-sample terms
+      in the i-frame once the rotation prefixes are known;
+    * (d_R_bg, d_v_bg, d_p_bg), stacked 9x3, follow X_j = A_j X_{j-1} + b_j
+      with A_j the 9x9 noise-propagation matrix, and the covariance
+      C_j = A_j C_{j-1} A_j^T + Q_j: one pairwise tree reduction of
+      (A, b, Q), whose odd element at a level is carried to the next.
+
+    Masked samples are identity elements (A = I, b = 0, Q = 0), so an
+    all-masked chunk returns the state unchanged, exactly."""
+    dt = params.dt
+    dt2 = dt * dt
+    dtype, device = gyr.dtype, gyr.device
+    m = gyr.shape[0]
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+    mskf = mask.to(dtype)[:, None]
+    msk3 = mskf[..., None]
+
+    ub_g = (gyr - bg) * mskf
+    ub_a = (acc - ba) * mskf
+    omega = ub_g * dt
+    exp, jr = lie.so3_exp_and_right_jacobian(omega)
+    dR_step = torch.where(mask[:, None, None], exp, eye3)                  # [M, 3, 3]
+    jr = jr * msk3
+
+    # rotation prefixes: inclusive in the chunk's frame, then exclusive in
+    # the i-frame
+    incl = associative_scan(torch.matmul, dR_step)
+    dR_total = state.dR @ incl[-1]
+    r_prev = state.dR @ torch.cat([eye3[None], incl[:-1]])                 # [M, 3, 3]
+
+    # dv, dp: dp_j = dp_{j-1} + dv_{j-1} dt + r_prev ub dt^2 / 2
+    t_v = lie.mv(r_prev, ub_a) * dt
+    dv_steps = torch.cumsum(t_v, 0)
+    zero = torch.zeros((m, 3, 3), dtype=dtype, device=device)
+    dv_prev = state.dv + torch.cat([zero[:1, 0], dv_steps[:-1]])
+    dp_total = state.dp + torch.sum((dv_prev * dt + t_v * (dt / 2)) * mskf, 0)
+
+    # per-sample A (9x9), b (9x3) and the noise Q = B covN B^T (9x9)
+    temp = r_prev @ lie.hat(ub_a)
+    eye_m = eye3.expand(m, 3, 3)
+    a_mat = _grid([dR_step.transpose(-1, -2), zero, zero,
+                   -temp * dt, eye_m, zero,
+                   -temp * (dt2 / 2), eye_m * dt * msk3, eye_m])
+    jr_jr_t = (jr @ jr.transpose(-1, -2)) * (params.cov_noise_d[0] * dt * dt)
+    rr_t = (r_prev @ r_prev.transpose(-1, -2)) * params.cov_noise_d[3]
+    rr_t_vp = rr_t * (dt * dt2 / 2)
+    q = _grid([jr_jr_t, zero, zero,
+               zero, rr_t * dt2, rr_t_vp,
+               zero, rr_t_vp, rr_t * (dt2 * dt2 / 4)]) * msk3
+    b = torch.cat([-jr * dt, zero, zero], -2)
+
+    # one pairwise reduction of (A, b, Q): ~M combines at log2(M) depth
+    elems = (a_mat, b, q)
+    mm = m
+    while mm > 1:
+        half = mm // 2
+        red = _fused_combine(tuple(x[0:2 * half:2] for x in elems),
+                             tuple(x[1:2 * half:2] for x in elems))
+        if mm % 2:
+            red = tuple(torch.cat([r, x[-1:]]) for r, x in zip(red, elems))
+        elems = red
+        mm = half + mm % 2
+    a_tot, b_tot, q_tot = (x[0] for x in elems)
+    x_new = a_tot @ torch.cat([state.d_R_bg, state.d_v_bg, state.d_p_bg]) + b_tot
+    cov_new = a_tot @ state.cov9 @ a_tot.T + q_tot
+
+    # d_v_ba, d_p_ba: cumulative sums (their A block is constant)
+    d_v_ba_steps = -torch.cumsum(r_prev * msk3, 0) * dt
+    d_v_ba_prev = state.d_v_ba + torch.cat([zero[:1], d_v_ba_steps[:-1]])
+    d_p_ba_total = state.d_p_ba + torch.sum(
+        (d_v_ba_prev * dt - r_prev * (dt2 / 2)) * msk3, 0)
+
+    return PreintState(
+        dR=dR_total,
+        dv=state.dv + dv_steps[-1],
+        dp=dp_total,
+        d_R_bg=x_new[0:3],
+        d_v_bg=x_new[3:6],
+        d_v_ba=state.d_v_ba + d_v_ba_steps[-1],
+        d_p_bg=x_new[6:9],
+        d_p_ba=d_p_ba_total,
+        cov9=cov_new,
+        dt=state.dt + mask.sum().to(dtype) * dt,
+    )
 
 
 def _spd_inverse(m: torch.Tensor) -> torch.Tensor:

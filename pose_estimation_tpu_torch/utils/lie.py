@@ -106,13 +106,19 @@ def _eye_like(k: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=k.dtype, device=k.device).expand(k.shape)
 
 
+def _exp_terms(omega: torch.Tensor):
+    """(I, A, B, C, w^, (w^)^2) of the exp map and the right Jacobian,
+    the coefficients shaped [..., 1, 1] (`_sinc_coeffs`)."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    a, b, c = (x[..., None, None] for x in _sinc_coeffs(theta2))
+    k = hat(omega)
+    return _eye_like(k), a, b, c, k, k @ k
+
+
 def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     """Exponential map so(3) -> SO(3). [..., 3] -> [..., 3, 3]."""
-    theta2 = torch.sum(omega * omega, dim=-1)
-    a, b, _ = _sinc_coeffs(theta2)
-    k = hat(omega)
-    k2 = k @ k
-    return _eye_like(k) + a[..., None, None] * k + b[..., None, None] * k2
+    eye, a, b, _, k, k2 = _exp_terms(omega)
+    return eye + a * k + b * k2
 
 
 def mat_to_quat(r: torch.Tensor) -> torch.Tensor:
@@ -176,11 +182,16 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 
 def right_jacobian(omega: torch.Tensor) -> torch.Tensor:
     """Right Jacobian of SO(3), Jr(w) = I - B(w) w^ + C(w) (w^)^2."""
-    theta2 = torch.sum(omega * omega, dim=-1)
-    _, b, c = _sinc_coeffs(theta2)
-    k = hat(omega)
-    k2 = k @ k
-    return _eye_like(k) - b[..., None, None] * k + c[..., None, None] * k2
+    eye, _, b, c, k, k2 = _exp_terms(omega)
+    return eye - b * k + c * k2
+
+
+def so3_exp_and_right_jacobian(omega: torch.Tensor):
+    """(so3_exp(omega), right_jacobian(omega)), bit for bit, from one
+    evaluation of the terms they share (theta, sin/cos, the hat and its
+    square), as a compiler would share them."""
+    eye, a, b, c, k, k2 = _exp_terms(omega)
+    return eye + a * k + b * k2, eye - b * k + c * k2
 
 
 def left_jacobian(omega: torch.Tensor) -> torch.Tensor:

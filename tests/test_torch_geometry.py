@@ -1,4 +1,5 @@
-"""PyTorch port vs the JAX package: Lie algebra, IMU preintegration,
+"""PyTorch port vs the JAX package: Lie algebra, IMU preintegration (the
+scan form and its loop oracle; tests/test_torch_preintegration.py has more),
 keypoint rectification, triangulation, and the port's copies of the JAX
 package's JAX-free records (config, camera model, BRIEF pattern).
 
@@ -98,21 +99,25 @@ def _state_close(t_state, j_state, rtol):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_integrate_chunk_matches_sequential_oracle(seed):
-    """The port's sample loop against the JAX sequential oracle and the
-    JAX associative-scan fast path, chained over two chunks. Tolerance
-    1e-5 relative to each field's magnitude: float32 recurrences of the
-    same math, reassociated only inside the 3x3/9x9 products."""
+    """The port's sample loop (`integrate_chunk_sequential`) against the
+    JAX sequential oracle and the JAX associative-scan fast path, and the
+    port's scan (`integrate_chunk`) against that fast path, chained over
+    two chunks. Tolerance 1e-5 relative to each field's magnitude: float32
+    recurrences of the same math, reassociated only inside the 3x3/9x9
+    products; the two scans follow one association order, 1e-6."""
     gyr, acc, mask, bg, ba = _imu_inputs(seed)
     _, jp, tp = _imu_params()
     js = jpre.init_state(jnp.float32)
     ts = tpre.init_state("cpu")
-    js_fast = js
+    js_fast, ts_fast = js, ts
     for _ in range(2):
         js = jpre.integrate_chunk_sequential(js, _j(gyr), _j(acc), _j(mask), _j(bg), _j(ba), jp)
         js_fast = jpre.integrate_chunk(js_fast, _j(gyr), _j(acc), _j(mask), _j(bg), _j(ba), jp)
-        ts = tpre.integrate_chunk(ts, _t(gyr), _t(acc), _t(mask), _t(bg), _t(ba), tp)
+        ts = tpre.integrate_chunk_sequential(ts, _t(gyr), _t(acc), _t(mask), _t(bg), _t(ba), tp)
+        ts_fast = tpre.integrate_chunk(ts_fast, _t(gyr), _t(acc), _t(mask), _t(bg), _t(ba), tp)
     _state_close(ts, js, 1e-5)
     _state_close(ts, js_fast, 1e-4)
+    _state_close(ts_fast, js_fast, 1e-6)
 
     jic = jpre.finalize(js, _j(bg), _j(ba), jp)
     tic = tpre.finalize(ts, _t(bg), _t(ba), tp)
