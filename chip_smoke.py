@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from `pose_estimation_tpu_torch/csrc/` and
+It builds the six CUDA kernels from `pose_estimation_tpu_torch/csrc/` (and
+the conditional WHILE node of the LM solves' graphs, `graph_while.cu`) and
 checks each against its torch twin at the shapes the main paths give it,
 timing each by CUDA events and by the profiler's device time: K1 (FAST
 select) at EuRoC scale (752x480 stereo, 8 levels, 800 features) and on the
@@ -21,8 +22,10 @@ plane counts, heights and element types, and K6 (Jacobi eigh and 3x3 SVD,
 [512, 12, 12] and [512, 3, 3] in float32, the PSD clip's [1, 45, 45] and
 [8, 45, 45] in float64, and of the identity's Schur complement, which the
 frames that marginalize nothing clip; the proper rotations' [512, 3, 3]
-SVD; the DLT's null vector against float64; each clip's Jacobi rounds
-and device us a round), beside `torch.linalg.eigh` and `svd`. It runs
+SVD of fixed sweeps at rank 3 and 2 together, and at rank 3, 2 and 1 and
+with entries near 1e15 and 1e-15 apart; the DLT's null vector against
+float64; each clip's Jacobi rounds and device us a round), beside
+`torch.linalg.eigh` and `svd`. It runs
 the eager `ok_step`, `sfm_step` (each PnP solver), `bootstrap_frame`,
 `full_init` and `refine_gravity` once each under
 `torch.cuda.set_sync_debug_mode("error")`, and holds the log-depth IMU
@@ -66,7 +69,10 @@ each with the kernel counts set to 0 just before and read just after:
   constraint, initializer, bootstrap frame, gravity refinement, warm
   recovery), keep the BA cost >= 0, the state finite
   and the aligned error under 2 x distance + 1 m, and equal, bit for bit,
-  the same run with `graphed=False`;
+  the same run with `graphed=False`, solve by solve in its LM iterations
+  (`graphs.iteration_log`; in the graphs each LM loop is a conditional
+  WHILE node that stops at convergence), which it prints by solve with
+  the iterations a steady OK frame leaves out;
 - the accuracy protocol of `benchmarks/chip_accuracy.py` through the port
   (family A worlds 0-2 for 6 s, family B worlds 0-1 for 12 s; gates ATE
   < 4 % of path, |ba| < 1.5, |bg| < 0.01), its runs spread over worker
@@ -106,7 +112,8 @@ each with the kernel counts set to 0 just before and read just after:
   graphed, and each dataset again through the CLI's body with
   `graphed=False`: each must reach OK, stay finite and under 2 x distance
   + 1 m, and write the JAX package's `states.csv` format, and the eager
-  file must equal the graphed one; the profiler counts an eager
+  file must equal the graphed one, and so must its LM iterations, solve
+  by solve; the profiler counts an eager
   keyframe's and another frame's kernels. Each replay prints its first OK
   frame's ms (a graphed run's warm-up and captures) and its later frames'
   ms split by the host work each ran beside the step (health check,
@@ -778,10 +785,57 @@ def graph_line(name, g) -> str:
     if "nodes" not in g:
         return (f"{name} (eager once, not captured)" if g.get("eager")
                 else f"{name} (not captured: {g['replays']} calls)")
-    return (f"{name} {'eager once, then ' if g.get('eager') else ''}{g['nodes']} nodes, "
+    body = (f" (+{g['body_nodes']} in {g['conditionals']} conditional bodies)"
+            if g.get("conditionals") else "")
+    return (f"{name} {'eager once, then ' if g.get('eager') else ''}{g['nodes']} nodes{body}, "
             f"capture {g['capture_s']:.3f} s, instantiate "
             f"{g['instantiate_s']:.3f} s, pool {g['pool_bytes'] / 2**20:.1f} MiB, launches "
             f"{g['launches']}, {g['replays']} replays")
+
+
+@contextlib.contextmanager
+def logged_iterations():
+    """While the block runs, every LM solve's iteration count goes to
+    `graphs.iteration_log` (eager solves at the solve, graphs at each
+    replay). Yields the list; read it with `graphs.read_iterations`."""
+    from pose_estimation_tpu_torch import graphs
+
+    before, graphs.iteration_log = graphs.iteration_log, []
+    try:
+        yield graphs.iteration_log
+    finally:
+        graphs.iteration_log = before
+
+
+def iteration_summary(counts) -> dict:
+    """{solve: {"solves", "mean", "max", "cap", "skipped"}} of [(solve,
+    iterations, cap)]: skipped is the iterations past convergence a solve,
+    which a graph's conditional nodes skip."""
+    by = {}
+    for name, n, cap in counts:
+        by.setdefault((name, cap), []).append(n)
+    return {name: {"solves": len(v), "mean": float(np.mean(v)), "max": int(max(v)),
+                   "cap": cap, "skipped": float(cap - np.mean(v))}
+            for (name, cap), v in by.items()}
+
+
+def iteration_line(summary) -> str:
+    """`iteration_summary` in one line."""
+    return "; ".join(f"{name} {r['solves']} solves, mean {r['mean']:.2f}, max {r['max']} of "
+                     f"{r['cap']} (skipped {r['skipped']:.2f} a solve)"
+                     for name, r in summary.items()) or "no LM solve"
+
+
+def frame_iterations(frames) -> dict:
+    """The LM iterations of observed OK frames (`observe_ok_frames` under
+    `logged_iterations`): by solve over all frames, and the iterations the
+    frames' own step skipped (motion-only and full BA past convergence), a
+    frame."""
+    counts = [c for f in frames for c in f.get("lm_iters", ())]
+    steps = [sum(cap - n for name, n, cap in f.get("lm_iters", ()) if name in ("ba", "full_ba"))
+             for f in frames if "lm_iters" in f]
+    return {"by_solve": iteration_summary(counts),
+            "skipped_per_frame": float(np.mean(steps)) if steps else None}
 
 
 def frames_by_kind(runner, start, inputs, frames, dev, profiled_per_kind=2) -> dict:
@@ -986,6 +1040,13 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
                     "launches": g2[4], "graphs": fused_stats}
     for name, g in fused_stats.items():
         print("  graph " + graph_line(name, g))
+    cap = static.max_iterations
+    iters = [int(m["ba_iters"]) for m in g2[2]]
+    out["chain"]["ba_iterations"] = iters
+    print(f"  motion-only BA iterations a frame as the frames report them (cap {cap}; the "
+          f"eager and graphed runs bit-equal): {iters}; mean {np.mean(iters):.2f}, "
+          f"{cap - np.mean(iters):.2f} a frame skipped by the frame graph's conditional "
+          "nodes")
 
     # the map front end with K4
     map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
@@ -1292,10 +1353,13 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
     (snapshot copies, as `_record` keeps them). `profile(frames)`, where
     given, says whether to run the frame under `torch.profiler`, whose
     CUDA kernel count is then recorded as `device_kernels` and its ms left
-    out; `on_frame(record)` may add to each record."""
+    out; under `logged_iterations`, the (solve, iterations, cap) of the LM
+    solves it ran as `lm_iters`; `on_frame(record)` may add to each
+    record."""
     import torch
     from torch.profiler import ProfilerActivity
 
+    from pose_estimation_tpu_torch import graphs
     from pose_estimation_tpu_torch.slam import State
 
     process, record, last, ran = slam.process, slam._record, {}, set()
@@ -1313,6 +1377,8 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
     def observed_process(img_l, img_r, ts):
         ok, count = slam.state == State.OK, slam._frame_count
         before, replays = counters(), REPLAYS["n"]
+        log = getattr(graphs, "iteration_log", None)
+        logged = None if log is None else len(log)
         ran.clear()
         wanted = bool(ok and profile is not None and profile(frames))
         t0 = time.perf_counter()
@@ -1334,6 +1400,8 @@ def observe_ok_frames(slam, frames, profile=None, on_frame=None):
                      "device_kernels": kernels}
             if kernels is None:
                 frame["ms"] = (time.perf_counter() - t0) * 1e3
+            if logged is not None:
+                frame["lm_iters"] = graphs.read_iterations(log[logged:])
             if on_frame is not None:
                 on_frame(frame)
             frames.append(frame)
@@ -1488,6 +1556,34 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
         print(f"note: profiler session {session} recorded no kernel named {kernel} "
               f"({len(events)} device events)")
     fail(f"the profiler saw no kernel named {kernel} in two sessions")
+
+
+def device_ms_each(fns, kernel: str, reps: int = 20) -> list:
+    """`device_ms` of each of `fns`, each launching one kernel named
+    `kernel` a call, in one profiler session (a second on a miss): the
+    calls interleave, fns[0], fns[1], ..., `reps` times, and the i-th of
+    each round's kernels is fns[i]'s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for session in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        hits = sorted((e for e in events if kernel in e.name), key=lambda e: e.time_range.start)
+        if len(hits) == reps * len(fns):
+            return [sum(e.device_time for e in hits[i::len(fns)]) / 1e3 / reps
+                    for i in range(len(fns))]
+        PROFILE_MISSES.append(kernel)
+        print(f"note: profiler session {session} recorded {len(hits)} kernels named {kernel} "
+              f"of {reps * len(fns)} ({len(events)} device events)")
+    fail(f"the profiler missed kernels named {kernel} in two sessions")
 
 
 def check_select(select_args, label):
@@ -1737,38 +1833,73 @@ def k6_checks(dev) -> dict:
         res["eigh"][label] = rec
     res["dlt_null"] = dlt_null_check(dev)
 
-    gen = torch.Generator(device=dev).manual_seed(6)
-    full = torch.randn((256, 3, 3), generator=gen, device=dev)
-    low = (torch.randn((256, 3, 2), generator=gen, device=dev)
-           @ torch.randn((256, 2, 3), generator=gen, device=dev))
-    a = torch.cat([full, low])                          # [512, 3, 3]: rank 3 and rank 2
-    u, sv, vh = small_linalg.svd(a)
-    pu, ps, pvh = small_linalg.svd_plain(a)
-    torch.cuda.synchronize()
-    a64 = a.double()
-    norm = torch.linalg.matrix_norm(a64)
-    rec_err = float((torch.linalg.matrix_norm((u.double() * sv.double()[..., None, :])
-                                              @ vh.double() - a64) / norm).max())
-    s_err = float(((sv.double() - ps.double()).abs().amax(-1) / norm).max())
-    eye = torch.eye(3, dtype=torch.float64, device=dev)
-    orth = max(float((x.double().transpose(-1, -2) @ x.double() - eye).abs().max())
-               for x in (u, vh.transpose(-1, -2)))
-    rec = {"shape": [512, 3, 3], "dtype": "float32", "reconstruction_rel": rec_err,
-           "s_err_rel": s_err, "orth_err": orth}
-    if not (rec_err <= K6_TOL["float32"] and s_err <= K6_TOL["float32"]
-            and orth <= K6_RES_TOL["float32"]):
-        fail(f"K6 svd {rec}: beyond {K6_TOL['float32']} or {K6_RES_TOL['float32']}")
-    rec.update(ms=cuda_ms(lambda: small_linalg.svd(a)),
-               device_ms=device_ms(lambda: small_linalg.svd(a), "svd3_kernel"),
-               plain_ms=cuda_ms(lambda: small_linalg.svd_plain(a), reps=5, warm=1),
-               lib_ms=cuda_ms(lambda: torch.linalg.svd(a), reps=5, warm=1))
-    rec["bound"], rec["by"] = bound(512 * (9 + 9 + 3 + 9) * 4, 512 * SVD3_INSTR)
-    print(f"K6 svd [512, 3, 3] float32 (rank 3 and rank 2): ||U S Vh - A|| {rec_err:.3g} x "
-          f"||A||, S within {s_err:.3g} x ||A|| of the twin, orthogonality {orth:.3g}; "
-          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin {rec['plain_ms']:.4f}, "
-          f"torch.linalg.svd {rec['lib_ms']:.4f}, bound {rec['bound']:.6f} ({rec['by']})")
-    res["svd"] = rec
+    res["svd"] = svd_checks(dev)
     return res
+
+
+def svd_checks(dev) -> dict:
+    """Phase 3b's SVD: K6's fixed-sweep `svd` (`ops/small_linalg.py`) against
+    its twin at the proper rotations' [512, 3, 3] float32, of rank 3 and
+    rank 2 together (the kernels line's record) and of rank 3, rank 2 and
+    rank 1 apart, and on matrices with entries near 1e15 and 1e-15: S
+    within K6_TOL x ||A|| of the twin's, ||U S Vh - A|| within K6_TOL x
+    ||A||, U and V orthonormal within K6_RES_TOL; each of the four timed
+    by CUDA events and the profiler's device time (one session for the
+    four, `device_ms_each`) beside the twin, `torch.linalg.svd` and its
+    bound. Returns the record of rank 3 and 2 with the others under
+    "by_rank"."""
+    import torch
+
+    from pose_estimation_tpu_torch.ops import small_linalg
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def product(rank, b=256):
+        return (torch.randn((b, 3, rank), generator=gen, device=dev)
+                @ torch.randn((b, rank, 3), generator=gen, device=dev))
+
+    full, low = torch.randn((256, 3, 3), generator=gen, device=dev), product(2)
+    inputs = {"rank 3 and rank 2": torch.cat([full, low]),     # [512, 3, 3]
+              "rank 3": torch.randn((512, 3, 3), generator=gen, device=dev),
+              "rank 2": product(2, 512), "rank 1": product(1, 512),
+              "entries near 1e15": 1e15 * torch.randn((512, 3, 3), generator=gen, device=dev),
+              "entries near 1e-15": 1e-15 * torch.randn((512, 3, 3), generator=gen,
+                                                        device=dev)}
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    timed = [label for label in inputs if not label.startswith("entries")]
+    dev_ms = dict(zip(timed, device_ms_each([lambda a=inputs[k]: small_linalg.svd(a)
+                                             for k in timed], "svd3_kernel")))
+    out = {}
+    for label, a in inputs.items():
+        u, sv, vh = small_linalg.svd(a)
+        pu, ps, pvh = small_linalg.svd_plain(a)
+        torch.cuda.synchronize()
+        a64 = a.double()
+        norm = torch.linalg.matrix_norm(a64)
+        rec_err = float((torch.linalg.matrix_norm((u.double() * sv.double()[..., None, :])
+                                                  @ vh.double() - a64) / norm).max())
+        s_err = float(((sv.double() - ps.double()).abs().amax(-1) / norm).max())
+        orth = max(float((x.double().transpose(-1, -2) @ x.double() - eye).abs().max())
+                   for x in (u, vh.transpose(-1, -2)))
+        rec = {"shape": [512, 3, 3], "dtype": "float32", "reconstruction_rel": rec_err,
+               "s_err_rel": s_err, "orth_err": orth}
+        if not (rec_err <= K6_TOL["float32"] and s_err <= K6_TOL["float32"]
+                and orth <= K6_RES_TOL["float32"]):
+            fail(f"K6 svd {label} {rec}: beyond {K6_TOL['float32']} or "
+                 f"{K6_RES_TOL['float32']}")
+        if label in dev_ms:
+            rec.update(ms=cuda_ms(lambda: small_linalg.svd(a)), device_ms=dev_ms[label],
+                       plain_ms=cuda_ms(lambda: small_linalg.svd_plain(a), reps=5, warm=1),
+                       lib_ms=cuda_ms(lambda: torch.linalg.svd(a), reps=5, warm=1))
+            rec["bound"], rec["by"] = bound(512 * (9 + 9 + 3 + 9) * 4, 512 * SVD3_INSTR)
+        print(f"K6 svd [512, 3, 3] float32 ({label}): ||U S Vh - A|| {rec_err:.3g} x ||A||, "
+              f"S within {s_err:.3g} x ||A|| of the twin, orthogonality {orth:.3g}"
+              + (f"; {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), twin "
+                 f"{rec['plain_ms']:.4f}, torch.linalg.svd {rec['lib_ms']:.4f}, bound "
+                 f"{rec['bound']:.6f} ({rec['by']})" if "ms" in rec else ""))
+        out[label] = rec
+    first = out.pop("rank 3 and rank 2")
+    return {**first, "by_rank": out}
 
 
 def keyframe_chain(consts, k, dev, seed=0):
@@ -2588,14 +2719,14 @@ def entry_point_checks(dev) -> dict:
     import tempfile
     from pathlib import Path
 
-    from pose_estimation_tpu_torch import load_config, run_euroc, run_kitti
+    from pose_estimation_tpu_torch import graphs, load_config, run_euroc, run_kitti
     from pose_estimation_tpu_torch import slam as slam_mod
     from pose_estimation_tpu_torch.io import euroc as euroc_io
     from pose_estimation_tpu_torch.live_viewer import LiveViewer
     from pose_estimation_tpu_torch.io import png
     from pose_estimation_tpu_torch.testing import sim_config, write_euroc, write_kitti
 
-    out = {}
+    out, lm_counts = {}, {}
     with tempfile.TemporaryDirectory() as tmp, counted_solves() as solves:
         out["solves"] = solves
         tmp = Path(tmp)
@@ -2629,7 +2760,7 @@ def entry_point_checks(dev) -> dict:
             key = ("euroc_full_ba" if full else "euroc") + ("_eager" if eager else "")
             csv = tmp / f"states_{key}.csv"
             zero_counters()
-            with observed_replays(profile=eager) as made:
+            with observed_replays(profile=eager) as made, logged_iterations() as log:
                 t0 = time.perf_counter()
                 if not (full or eager):
                     run_euroc.main(["--config", str(e_yml), "--out", str(csv), "--ate"])
@@ -2637,6 +2768,7 @@ def entry_point_checks(dev) -> dict:
                     replay_cli_body("euroc", e_yml, csv, dev, graphed=not eager,
                                     **({"full_ba_keyframes": True} if full else {}))
                 wall = time.perf_counter() - t0
+                lm_counts[key] = graphs.read_iterations(log)
             (slam,) = made
             if slam.device != dev or slam.static.full_ba_keyframes != full \
                     or slam.graphed == eager:
@@ -2653,12 +2785,16 @@ def entry_point_checks(dev) -> dict:
                     iters = [int(f["full_ba_iters"]) for f, k in zip(frames, kf) if k == pick]
                     r[f"full_ba_iters_{name}"] = float(np.mean(iters)) if iters else None
             n_prof = sum(f["device_kernels"] is not None for f in frames)
-            r.update(keyframes=sum(kf), wall_s=wall, profiled_frames=n_prof)
+            r.update(keyframes=sum(kf), wall_s=wall, profiled_frames=n_prof,
+                     lm_iterations=iteration_summary(lm_counts[key]),
+                     lm_skipped_per_ok_frame=frame_iterations(frames)["skipped_per_frame"])
             if not eager:
                 r["graphs"] = {**slam._graphs.stats(), **slam._solve_graphs.stats()}
                 print(f"  {label}: {sum(kf)} keyframes of {len(frames)} OK frames; graphs "
                       + "; ".join(graph_line(n, g) for n, g in r["graphs"].items())
-                      + f"; {wall:.1f} s")
+                      + f"; LM iterations {iteration_line(r['lm_iterations'])}, "
+                      f"{r['lm_skipped_per_ok_frame']:.2f} a steady OK frame skipped; "
+                      f"{wall:.1f} s")
             else:
                 graphed = out[key[:-len("_eager")]]
                 same = csv.read_text() == (tmp / f"states_{key[:-len('_eager')]}.csv").read_text()
@@ -2675,29 +2811,42 @@ def entry_point_checks(dev) -> dict:
                       + f"; {wall:.1f} s")
                 if not same:
                     fail(f"{label}: states.csv differs from the graphed replay's")
+                if lm_counts[key] != lm_counts[key[:-len("_eager")]]:
+                    fail(f"{label}: LM iterations {iteration_line(r['lm_iterations'])} "
+                         f"against the graphed replay's {iteration_line(graphed['lm_iterations'])}")
             out[key] = r
 
         for key, eager in (("kitti", False), ("kitti_eager", True)):
             kcsv = tmp / f"states_{key}.csv"
             zero_counters()
-            with observed_replays() as made:
+            with observed_replays() as made, logged_iterations() as log:
                 if eager:
                     replay_cli_body("kitti", k_yml, kcsv, dev, graphed=False)
                 else:
                     run_kitti.main(["--config", str(k_yml), "--out", str(kcsv)])
+                lm_counts[key] = graphs.read_iterations(log)
             (slam,) = made
             if slam.graphed == eager:
                 fail(f"KITTI: graphed {slam.graphed} in the {key} replay")
             out[key] = check_replay("KITTI, eager" if eager else "KITTI CLI", slam, kgt, kcsv,
                                     counters(), ("fast_score_nms", "sample_patches"))
+            out[key].update(lm_iterations=iteration_summary(lm_counts[key]),
+                            lm_skipped_per_ok_frame=frame_iterations(
+                                slam.observed["frames"])["skipped_per_frame"])
         same = ((tmp / "states_kitti.csv").read_text()
                 == (tmp / "states_kitti_eager.csv").read_text())
         out["kitti_eager"]["bit_equal_to_graphed"] = same
         print(f"  KITTI CLI: {out['kitti']['ms_per_ok_frame']:.2f} ms per OK frame graphed, "
               f"{out['kitti_eager']['ms_per_ok_frame']:.2f} eager; states.csv "
-              + ("bit-equal" if same else "DIFFERS"))
+              + ("bit-equal" if same else "DIFFERS") + "; LM iterations "
+              + iteration_line(out["kitti"]["lm_iterations"])
+              + f", {out['kitti']['lm_skipped_per_ok_frame']:.2f} a steady OK frame skipped; "
+              + ("equal eager" if lm_counts["kitti"] == lm_counts["kitti_eager"]
+                 else "eager DIFFERENT"))
         if not same:
             fail("KITTI CLI: the eager replay's states.csv differs from the graphed one's")
+        if lm_counts["kitti"] != lm_counts["kitti_eager"]:
+            fail("KITTI CLI: the eager replay's LM iterations differ from the graphed one's")
 
         class CountingViewer(LiveViewer):
             """A LiveViewer that counts its pose, keyframe and landmark pushes."""
@@ -2768,6 +2917,7 @@ def entry_point_checks(dev) -> dict:
 def main() -> None:
     import torch
 
+    from pose_estimation_tpu_torch import graphs
     from pose_estimation_tpu_torch.camera import CameraModel
     from pose_estimation_tpu_torch.models import vio
     from pose_estimation_tpu_torch.ops import kernels
@@ -2790,6 +2940,9 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    if not hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool"):
+        fail("this torch cannot route a stream's allocations to a graph pool: the LM "
+             "solves' conditional bodies (graphs.iterate) cannot be captured")
 
     # ---- phase 2: build the kernels
     lib_path, build_s, log = kernels.build()
@@ -2986,8 +3139,9 @@ def main() -> None:
     kworld = StereoInertialSim(kcfg, n_landmarks=150, seed=0)
     zero_counters()
     t0 = time.perf_counter()
-    with counted_solves() as kitti_solves:
+    with counted_solves() as kitti_solves, logged_iterations() as k_log:
         kslam, kgt, kframes, k_extract = run_state_machine(kcfg, kworld, 6.0, 10, 0, dev)
+        k_iters = graphs.read_iterations(k_log)
     kitti_launches = counters()
     k_wall = time.perf_counter() - t0
     check_frame_replays("KITTI width", kframes)
@@ -3021,10 +3175,11 @@ def main() -> None:
     k_times = frame_times(kframes)
     kitti_ms, kitti_median = k_times["mean_ms"], k_times["median_ms"]
     kitti_graphs = {**kslam._graphs.stats(), **kslam._solve_graphs.stats()}
-    with count_prior_clip() as kitti_clip:
+    with count_prior_clip() as kitti_clip, logged_iterations() as ke_log:
         eslam, _, eframes, _ = run_state_machine(
             kcfg, StereoInertialSim(kcfg, n_landmarks=150, seed=0), 6.0, 10, 0, dev,
             graphed=False)
+        ke_iters = graphs.read_iterations(ke_log)
     ke_times = frame_times(eframes)
     kitti_eager_ms, kitti_eager_median = ke_times["mean_ms"], ke_times["median_ms"]
     kitti_same = (np.array_equal(kslam.trajectory, eslam.trajectory)
@@ -3046,6 +3201,15 @@ def main() -> None:
     print(f"  KITTI width, eager: {frame_times_line(ke_times)}")
     if not kitti_same:
         fail("KITTI width: the graphed state machine differs from the eager one")
+    kitti_iters = {"graphed": iteration_summary(k_iters), "eager": iteration_summary(ke_iters),
+                   "skipped_per_ok_frame": frame_iterations(kframes)["skipped_per_frame"]}
+    print(f"  KITTI width, LM iterations of every solve, graphed (conditional nodes): "
+          f"{iteration_line(kitti_iters['graphed'])}; {kitti_iters['skipped_per_ok_frame']:.2f} "
+          "iterations a steady OK frame skipped; eager "
+          + ("equal, solve by solve" if k_iters == ke_iters else "DIFFERENT"))
+    if k_iters != ke_iters:
+        fail(f"KITTI width: LM iterations graphed {iteration_line(kitti_iters['graphed'])} "
+             f"against eager {iteration_line(kitti_iters['eager'])}")
 
     # the accuracy protocol's failures are raised after the later phases
     # (the entry points, the mesh) have run, so that one call reports them
@@ -3218,6 +3382,7 @@ def main() -> None:
     ], "ok_step_ms_per_frame": ms_frame, "map_ok_step_ms_per_frame": map_ms_frame,
         "kitti_ms_per_ok_frame": kitti_ms, "full_ba_ok_step_ms_per_frame": full_ms_frame,
         "kitti_eager_ms_per_ok_frame": kitti_eager_ms, "kitti_graphs": kitti_graphs,
+        "kitti_lm_iterations": kitti_iters,
         "kitti_median_ms": {"graphed": kitti_median, "eager": kitti_eager_median},
         "kitti_frame_times": {"graphed": k_times, "eager": ke_times},
         "entry_points": entry, "staged": staged, "graphed": graphed, "mesh": mesh,

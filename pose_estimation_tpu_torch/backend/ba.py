@@ -325,7 +325,7 @@ def motion_only_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
         win, obs, calib, gravity, prior_factor, use_marg_prior, ba_prior_sigma
     )
     x, info = lm_mod.lm_solve_normal(
-        normal_fn, x0, lm_mod.LMOptions(max_iterations=max_iterations)
+        normal_fn, x0, lm_mod.LMOptions(max_iterations=max_iterations), name="ba"
     )
     info["num_landmarks"] = aux["num_landmarks"]
     info["num_observations"] = aux["num_observations"]

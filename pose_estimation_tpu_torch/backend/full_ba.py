@@ -13,12 +13,13 @@ right-multiplicatively and landmark increments are world deltas. The IMU
 and prior pair terms and their Jacobians are the motion-only problem's
 (`ba._prep`).
 
-As in `lm.py`, the JAX `lax.while_loop` becomes exactly `max_iterations`
-iterations that freeze once done (the same iterate and iteration count),
-with no host read: the batched inverse is `inv_ex`, the Cholesky solve
-`cholesky_ex` whose failure zeroes the step (which is then rejected), and
-every buffer is built by concatenation, so the solve maps over sequences
-with `torch.func.vmap`.
+As in `lm.py`, the JAX `lax.while_loop` becomes `max_iterations`
+iterations that freeze once done (the same iterate and iteration count;
+`graphs.iterate`: in a captured graph one conditional WHILE node that
+stops at convergence), with no host read: the batched inverse is
+`inv_ex`, the Cholesky solve `cholesky_ex` whose failure zeroes the step
+(which is then rejected), and every buffer is built by concatenation, so
+the solve maps over sequences with `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -172,14 +173,10 @@ def full_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
 
     x_pose = torch.zeros(n_pose, dtype=dtype, device=dev)
     x_lm = torch.zeros((L, 3), dtype=dtype, device=dev)
-    cost, r_pairs, err, w_lm = cost_of(x_pose, x_lm)
-    cost0 = cost
-    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-    nu = torch.full((), 2.0, dtype=dtype, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    cost0, r_pairs, err, w_lm = cost_of(x_pose, x_lm)
 
-    for _ in range(max_iterations):
+    def body(s):
+        x_pose, x_lm, r_pairs, err, w_lm, cost, lam, nu, it, done = s
         live = ~done
         step_p, step_l, g_s, h_pp_d, bad = solve(x_pose, r_pairs, err, w_lm, lam)
         x_pose_new = x_pose + step_p
@@ -196,16 +193,22 @@ def full_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
         done_new = accept & ((cost - new_cost).abs() <= 1e-6 * (cost + 1e-32))
 
         take = live & accept
-        x_pose = torch.where(take, x_pose_new, x_pose)
-        x_lm = torch.where(take, x_lm_new, x_lm)
-        r_pairs = torch.where(take, r_new, r_pairs)
-        err = torch.where(take, err_new, err)
-        w_lm = torch.where(take, w_new, w_lm)
-        cost = torch.where(take, new_cost, cost)
-        lam = torch.where(live, lam_new, lam)
-        nu = torch.where(live, nu_new, nu)
-        it = it + live.to(torch.int32)
-        done = done | (live & done_new)
+        return (torch.where(take, x_pose_new, x_pose), torch.where(take, x_lm_new, x_lm),
+                torch.where(take, r_new, r_pairs), torch.where(take, err_new, err),
+                torch.where(take, w_new, w_lm), torch.where(take, new_cost, cost),
+                torch.where(live, lam_new, lam), torch.where(live, nu_new, nu),
+                it + live.to(torch.int32), done | (live & done_new))
 
+    start = (x_pose, x_lm, r_pairs, err, w_lm, cost0,
+             torch.full((), 1e-4, dtype=dtype, device=dev),
+             torch.full((), 2.0, dtype=dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    # imported here: graphs imports the models, which import this module
+    from pose_estimation_tpu_torch import graphs
+
+    x_pose, x_lm, _, _, _, cost, _, _, it, _ = graphs.iterate(body, start, max_iterations,
+                                                              lambda s: ~s[-1])
+    graphs.log_iterations("full_ba", it, max_iterations)
     info = {"initial_cost": cost0, "final_cost": cost, "iterations": it}
     return (x_pose[:np6].reshape(wsize, 6), x_pose[np6:].reshape(wsize, 9), x_lm, info)

@@ -56,7 +56,7 @@ def solve_gyr_bias(R, ics, max_iterations: int = 50):
 
     return lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(3, dtype=R.dtype, device=R.device),
-        lambda r: _huber_rows(r, nb, 3), _options(max_iterations),
+        lambda r: _huber_rows(r, nb, 3), _options(max_iterations), name="gyr_bias",
     )
 
 
@@ -79,6 +79,7 @@ def solve_gravity_velocity(R, p, ics, max_iterations: int = 50):
     x, info = lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(3 + 3 * w, dtype=R.dtype, device=R.device),
         lambda r: _huber_rows(r, nb, 6), _options(max_iterations),
+        name="gravity_velocity",
     )
     return x[0:3], x[3:].reshape(w, 3), info
 
@@ -112,6 +113,7 @@ def solve_gravity_velocity_bias(R, p, ics, max_iterations: int = 50):
     x, info = lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(6 + 3 * w, dtype=dtype, device=dev),
         lambda r: _huber_rows(r, nb, 6), _options(max_iterations),
+        name="gravity_velocity_bias",
     )
     return x[0:3], x[3:6], x[6:].reshape(w, 3), info
 
@@ -160,7 +162,7 @@ def solve_gravity_tilt_bias(R, p, ics, g0, max_iterations: int = 50,
 
     x, info = lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(5 + 3 * w, dtype=dtype, device=dev),
-        weight_fn, _options(max_iterations),
+        weight_fn, _options(max_iterations), name="tilt",
     )
     g_raw = g0 + lie.mv(basis, x[0:2])
     g_est = g_raw / torch.linalg.norm(g_raw) * g_mag
@@ -178,7 +180,7 @@ def solve_alignment(init_g, unit_g, axes, max_iterations: int = 50):
 
     x, info = lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(2, dtype=init_g.dtype, device=init_g.device),
-        None, _options(max_iterations),
+        None, _options(max_iterations), name="alignment",
     )
     return res.embed_axes(x, axes, init_g), info
 
@@ -196,7 +198,7 @@ def solve_acc_bias(R, v, p, ics, gravity, max_iterations: int = 50):
 
     return lm_mod.lm_solve(
         residual_fn, jac, torch.zeros(3, dtype=R.dtype, device=R.device),
-        lambda r: _huber_rows(r, nb, 6), _options(max_iterations),
+        lambda r: _huber_rows(r, nb, 6), _options(max_iterations), name="acc_bias",
     )
 
 

@@ -58,6 +58,16 @@ replay runs them all again: `replayed` and `recorded` sum these over the
 process, so a kernel's launches run are its wrapper's count - recorded +
 replayed.
 
+The LM solves' iterations past convergence (`backend/lm.py`,
+`backend/full_ba.py`) do not run on the device: in a capture each solve's
+loop is one conditional WHILE node (`iterate`, `csrc/graph_while.cu`), the
+counterpart of the JAX package's `lax.while_loop`, its body one iteration.
+The iterations it leaves out are the no-ops that the fixed loop's frozen
+iterations are, so a replay equals the eager run bit for bit; the eager
+path (`graphed=False`) and the CPU keep the fixed loop as the yardstick. A
+step's `stats` count the nodes of its top-level graph and, apart, those
+inside its conditional bodies.
+
 On the CPU, which the tests use, the same plumbing runs without capture:
 each call runs the function on the static buffers and copies its outputs
 into static outputs, so an output kept past the next call is overwritten
@@ -71,6 +81,7 @@ capture.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -81,7 +92,7 @@ import torch
 
 from pose_estimation_tpu_torch.imu import preintegration as pre
 from pose_estimation_tpu_torch.models import vio as vio_mod
-from pose_estimation_tpu_torch.ops import fast, moments, sample, small_linalg
+from pose_estimation_tpu_torch.ops import fast, kernels, moments, sample, small_linalg
 from pose_estimation_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -95,6 +106,15 @@ def kernel_counts() -> dict:
 # over the process, the launches that captures recorded and that replays ran
 recorded: dict[str, int] = {}
 replayed: dict[str, int] = {}
+# the step whose graph the current capture records (`CapturedStep._capture`)
+_capturing: "CapturedStep | None" = None
+# the host form of `iterate`, for the CPU tests (`host_conditionals`)
+_host_conditionals = False
+# where a list, every LM solve that runs appends (name, its iteration
+# count as a device scalar, its cap): eagerly at the solve
+# (`log_iterations`), in a graph at each replay (`CapturedStep`); a
+# measurement hook, read with `read_iterations`
+iteration_log: list | None = None
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -142,6 +162,131 @@ def snapshot(tree):
     return tree_unflatten(tree, iter(views))
 
 
+def log_iterations(name: str, iterations: torch.Tensor, cap: int) -> None:
+    """Keep an LM solve's iteration count (a device scalar, not read here):
+    in a capture with the capturing step (`CapturedStep.iterations`, the
+    static buffer each replay writes), else in `iteration_log` where it is
+    a list. Under `torch.func.vmap` nothing is kept."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        return
+    if _capturing is not None:
+        _capturing.iterations.append((name, iterations, cap))
+    elif iteration_log is not None:
+        iteration_log.append((name, iterations, cap))
+
+
+def read_iterations(entries) -> list:
+    """[(name, iterations, cap)] of `iteration_log` entries, read in one
+    transfer."""
+    if not entries:
+        return []
+    counts = torch.stack([t.to("cpu") for _, t, _ in entries]).tolist()
+    return [(name, n, cap) for (name, _, cap), n in zip(entries, counts)]
+
+
+@contextlib.contextmanager
+def host_conditionals():
+    """For the CPU tests: inside the block `iterate` runs its conditional
+    form on the host, the carry in buffers that each iteration overwrites,
+    reading the loop's test on the host and stopping where it is false."""
+    global _host_conditionals
+    before, _host_conditionals = _host_conditionals, True
+    try:
+        yield
+    finally:
+        _host_conditionals = before
+
+
+def iterate(body, carry, iterations: int, live):
+    """`carry = body(carry)`, `iterations` times: an LM solve's loop, whose
+    body leaves the carry unchanged once `live(carry)` (a bool scalar
+    tensor) is false, so that an iteration past convergence is a no-op.
+
+    In a capture of a `CapturedStep` the loop is one conditional WHILE node
+    (`csrc/graph_while.cu`) whose body, one iteration, is captured once:
+    the device runs it while the solve is live and under its cap, and then
+    stops, as the JAX package's `lax.while_loop` does. The carry, the count
+    and the loop's test live in buffers allocated before the node, which
+    the body overwrites in place (`commit`); the body's own tensors come
+    from a memory pool of the step's (`CapturedStep.body_pool`) on a stream
+    of their own (`_body_stream`). The iterations not run are exactly the
+    fixed loop's frozen ones, so the result is the fixed loop's bit for
+    bit. A body holds no hand kernel (their launch counters assume that
+    every recorded launch replays). Outside a capture, and under
+    `torch.func.vmap` (whose while_loop JAX runs as a select on every
+    lane), the fixed loop runs; inside `host_conditionals` the host tests
+    the flag and stops."""
+    step = _capturing
+    if (iterations <= 0 or torch._C._functorch.peek_interpreter_stack() is not None
+            or (step is None and not _host_conditionals)):
+        for _ in range(iterations):
+            carry = body(carry)
+        return carry
+    carry = tree_map(torch.clone, carry)
+    flag = live(carry)
+    count = torch.zeros((), dtype=torch.int32, device=flag.device)
+
+    def run():
+        commit(carry, body(carry), ())
+        count.add_(1)
+        torch.logical_and(live(carry), count < iterations, out=flag)
+
+    if step is None:
+        while bool(flag):
+            run()
+        return carry
+    lib, dev = kernels.library(), flag.device
+    side = _body_stream(dev)
+    handle, graph = ctypes.c_ulonglong(0), ctypes.c_void_p(0)
+    before = kernel_counts()
+    kernels.check(lib.graph_while_begin(torch.cuda.current_stream(dev).cuda_stream,
+                                        side.cuda_stream, flag.data_ptr(),
+                                        ctypes.byref(handle), ctypes.byref(graph)),
+                  "graph_while_begin")
+    try:
+        with torch.cuda.stream(side):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, step.body_pool)
+            try:
+                run()
+            finally:
+                torch._C._cuda_endAllocateToPool(dev.index, step.body_pool)
+    finally:
+        err = lib.graph_while_end(side.cuda_stream, handle, flag.data_ptr())
+    kernels.check(err, "graph_while_end")
+    step.body_nodes += _nodes(graph.value)
+    step.conditionals += 1
+    if kernel_counts() != before:
+        raise RuntimeError("a hand kernel launched inside a conditional body: its launch "
+                           "counter would count replays that skip it")
+    return carry
+
+
+_body_streams: dict = {}
+
+
+def _body_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream that captures the conditional bodies on `device`, made
+    and warmed up once (a cuBLAS product, a Cholesky factorization and a
+    triangular solve run on it eagerly, so that their handles and
+    workspaces exist before a capture needs them)."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    side = _body_streams.get(device)
+    if side is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the conditional bodies' stream is made before a capture "
+                               "(CapturedStep._capture)")
+        side = _body_streams[device] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            a = torch.eye(4, device=device) + torch.ones(4, 4, device=device) @ torch.eye(
+                4, device=device)
+            chol, _ = torch.linalg.cholesky_ex(a)
+            torch.linalg.solve_triangular(chol, a, upper=False)
+        torch.cuda.synchronize(device)
+    return side
+
+
 @functools.lru_cache(maxsize=1)
 def _libcuda():
     lib = ctypes.CDLL("libcuda.so.1")
@@ -151,6 +296,14 @@ def _libcuda():
     return lib
 
 
+def _nodes(raw_graph: int) -> int:
+    n = ctypes.c_size_t(0)
+    err = _libcuda().cuGraphGetNodes(ctypes.c_void_p(raw_graph), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
+
+
 def pool_bytes(pool) -> int:
     """The bytes the caching allocator holds for a graph memory pool."""
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -158,13 +311,10 @@ def pool_bytes(pool) -> int:
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
-    """The node count of a graph captured with `keep_graph=True`."""
-    n = ctypes.c_size_t(0)
-    err = _libcuda().cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
-                                     ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
-    return n.value
+    """The top-level node count of a graph captured with `keep_graph=True`
+    (a conditional node counts as one; its body's nodes are counted apart,
+    `CapturedStep.body_nodes`)."""
+    return _nodes(graph.raw_cuda_graph())
 
 
 def _where(exc: BaseException) -> str:
@@ -201,10 +351,22 @@ class CapturedStep:
         # kernel launches held by the graph, and the capture's costs
         self.launches: dict = {}
         self.stats: dict = {}
+        # the graph's conditional nodes and the nodes of their bodies, the
+        # memory pool of the bodies' own tensors, and its LM solves' (name,
+        # iteration count buffer, cap)
+        self.conditionals = 0
+        self.body_pool = None
+        self.body_nodes = 0
+        self.iterations: list = []
 
     def _capture(self):
+        global _capturing
         before = kernel_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.conditionals, self.body_nodes, self.iterations = 0, 0, []
+        if self.body_pool is None:
+            self.body_pool = torch.cuda.graph_pool_handle()
+        _body_stream(self.device)
         t0 = time.perf_counter()
         mode = torch.cuda.get_sync_debug_mode()
         collecting = gc.isenabled()
@@ -214,9 +376,11 @@ class CapturedStep:
                 # an operation that would wait for the device raises at once,
                 # naming itself, instead of invalidating the capture
                 torch.cuda.set_sync_debug_mode("error")
+                _capturing = self
                 try:
                     out = self.fn(*self.args)
                 finally:
+                    _capturing = None
                     torch.cuda.set_sync_debug_mode(mode)
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed at "
@@ -235,7 +399,8 @@ class CapturedStep:
         # the pool's size after this capture (a runner's pool is shared by
         # its graphs)
         self.stats = {"capture_s": t1 - t0, "instantiate_s": t2 - t1,
-                      "nodes": graph_nodes(graph), "pool_bytes": pool_bytes(graph.pool())}
+                      "nodes": graph_nodes(graph), "conditionals": self.conditionals,
+                      "body_nodes": self.body_nodes, "pool_bytes": pool_bytes(graph.pool())}
 
     def __call__(self):
         if self.device.type == "cuda":
@@ -244,6 +409,11 @@ class CapturedStep:
             self.graph.replay()
             for k, n in self.launches.items():
                 replayed[k] = replayed.get(k, 0) + n
+            if iteration_log is not None and self.iterations:
+                # this replay's counts, before the next replay overwrites them
+                counts = torch.stack([it for _, it, _ in self.iterations])
+                iteration_log.extend((name, counts[i], cap)
+                                     for i, (name, _, cap) in enumerate(self.iterations))
         else:
             out = self.fn(*self.args)
             if self.out is None:
@@ -258,11 +428,16 @@ def warm_up(fn, args, device) -> None:
     """Run `fn` once on clones of `args` on a side stream, so that nothing
     the capture needs is left uninitialised (the kernel library, cuBLAS
     and cuSOLVER handles, the cached launch tables) and no live buffer
-    changes."""
+    changes; its LM solves are not logged."""
+    global iteration_log
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn(*tree_map(torch.clone, args))
+    log, iteration_log = iteration_log, None
+    try:
+        with torch.cuda.stream(side):
+            fn(*tree_map(torch.clone, args))
+    finally:
+        iteration_log = log
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
 

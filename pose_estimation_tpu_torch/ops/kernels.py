@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The `.cu` sources (the kernels, and the host-side PNG unfilter of
-`io/png.py`) are compiled at first use with `nvcc` for `sm_90a` into
+The `.cu` sources (the kernels, the host-side PNG unfilter of
+`io/png.py`, and the conditional WHILE node of `graphs.iterate`) are
+compiled at first use with `nvcc` for `sm_90a` into
 one shared library with a plain C interface, loaded with `ctypes`. The
 library lands in `pose_estimation_tpu_torch/build/` (git-ignored) under a
 name that carries the hash of the sources, the shared header and the
@@ -26,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
-           "moment_maps.cu", "stream_probe.cu", "small_linalg.cu", "png_unfilter.cu")
+           "moment_maps.cu", "stream_probe.cu", "small_linalg.cu", "png_unfilter.cu",
+           "graph_while.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
@@ -101,6 +103,11 @@ def library() -> ctypes.CDLL:
     lib.small_svd3_launch.restype = i
     lib.png_unfilter.argtypes = [p, i, i, p]
     lib.png_unfilter.restype = i
+    lib.graph_while_begin.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_ulonglong),
+                                      ctypes.POINTER(p)]
+    lib.graph_while_begin.restype = i
+    lib.graph_while_end.argtypes = [p, ctypes.c_ulonglong, p]
+    lib.graph_while_end.restype = i
     return lib
 
 

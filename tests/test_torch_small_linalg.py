@@ -19,8 +19,11 @@ DLT's and EPnP's [512, 12, 12] and [512, 3, 3] in float32, the clip's
 - The PSD clip (`backend/ba.py:psd_clip`) against a numpy clip.
 - NaN in, NaN out.
 
-The kernel itself is held to the twins by the `cuda`-marked test (skipped
-without a GPU) and by `chip_smoke.py` phase 3b.
+The kernel itself is held to the twins by the `cuda`-marked tests (skipped
+without a GPU; the SVD also on `SVD_CASES`: ranks 3, 2 and 1, near-repeated
+singular values, entries near 1e15 and 1e-15, diagonal, NaN, which
+`tests/test_torch_svd3_model.py` runs through a numpy model of the kernel)
+and by `chip_smoke.py` phase 3b.
 """
 
 import numpy as np
@@ -97,6 +100,46 @@ def test_eigh_twin_matches_jax(case):
         assert len(mine) == len(ref), i
         for (_, p), (_, q) in zip(mine, ref):
             np.testing.assert_allclose(p, q, atol=1e-9 if f64 else 1e-3, rtol=0)
+
+
+def _orthogonal(rng, b):
+    q, r = np.linalg.qr(rng.normal(size=(b, 3, 3)))
+    return q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+
+
+def _with_singular_values(rng, b, s):
+    """[b, 3, 3] matrices U diag(s) V^T of random orthogonal U and V."""
+    return _orthogonal(rng, b) @ (np.asarray(s)[:, None] * _orthogonal(rng, b))
+
+
+def _with_nan(rng, b):
+    a = rng.normal(size=(b, 3, 3))
+    a[1::3, rng.integers(3), rng.integers(3)] = np.nan
+    a[2::5, 1, 2] = np.inf
+    return a
+
+
+# float32 [B, 3, 3] inputs of K6's svd: ranks 3, 2 and 1, near-repeated
+# singular values (the first two, the last two, all three), entries near
+# 1e15 and 1e-15 (squares finite in float32), diagonal, NaN and infinity
+SVD_CASES = {
+    "rank3": lambda r: r.normal(size=(256, 3, 3)).astype(np.float32),
+    "rank2": lambda r: (r.normal(size=(256, 3, 2)) @ r.normal(size=(256, 2, 3)))
+    .astype(np.float32),
+    "rank1": lambda r: (r.normal(size=(256, 3, 1)) @ r.normal(size=(256, 1, 3)))
+    .astype(np.float32),
+    "repeated12": lambda r: _with_singular_values(r, 256, [1.0, 1.0 - 1e-6, 0.3])
+    .astype(np.float32),
+    "repeated23": lambda r: _with_singular_values(r, 256, [1.0, 0.3, 0.3 * (1 + 1e-6)])
+    .astype(np.float32),
+    "repeated123": lambda r: _with_singular_values(r, 256, [1.0, 1.0 + 1e-7, 1.0 - 1e-7])
+    .astype(np.float32),
+    "big": lambda r: (1e15 * r.normal(size=(64, 3, 3))).astype(np.float32),
+    "small": lambda r: (1e-15 * r.normal(size=(64, 3, 3))).astype(np.float32),
+    "diagonal": lambda r: np.stack([np.diag(x) for x in r.normal(size=(32, 3))])
+    .astype(np.float32),
+    "nan": lambda r: _with_nan(r, 32).astype(np.float32),
+}
 
 
 def _svd_cases(rng):
@@ -198,3 +241,29 @@ def test_kernel_matches_twin(cuda, case):
         u, s, vh = small_linalg.svd(a.to(cuda))
         rec = (u * s[..., None, :]) @ vh
         assert ((rec.cpu().double() - a64).abs().amax((-2, -1)) <= 10 * tol * norm[:, 0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SVD_CASES))
+def test_svd_kernel_matches_twin(cuda, case):
+    """K6's svd against its twin on the model's matrices (the
+    `chip_smoke.py` phase 3b tolerances): S within 1e-5 ||A|| of the
+    twin's, ||U S Vh - A|| within 1e-5 ||A||, U and V orthonormal within
+    1e-4, S descending, V canonical; NaN for a non-finite matrix."""
+    a = torch.from_numpy(SVD_CASES[case](np.random.default_rng(list(SVD_CASES).index(case))))
+    u, s, vh = (x.cpu().double() for x in small_linalg.svd(a.to(cuda)))
+    pu, ps, pvh = (x.double() for x in small_linalg.svd_plain(a))
+    bad = ~torch.isfinite(a).all(-1).all(-1)
+    assert all(torch.isnan(x[bad]).all() for x in (u, s, vh))
+    a64, live = a.double()[~bad], ~bad
+    u, s, vh, ps = u[live], s[live], vh[live], ps[live]
+    norm = torch.linalg.matrix_norm(a64)
+    assert ((s - ps).abs().amax(-1) <= F32_TOL * norm).all()
+    rec = (u * s[..., None, :]) @ vh
+    assert ((rec - a64).abs().amax((-2, -1)) <= F32_TOL * norm).all()
+    eye = torch.eye(3, dtype=torch.float64)
+    assert (u.transpose(-1, -2) @ u - eye).abs().max() <= 1e-4
+    assert (vh @ vh.transpose(-1, -2) - eye).abs().max() <= 1e-4
+    assert (s[:, :-1] >= s[:, 1:]).all()
+    lead = torch.gather(vh, 2, vh.abs().argmax(2, keepdim=True))
+    assert (lead > 0).all()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times of kernel K6's Jacobi `eigh` and of the graphed OK frame by kind,
+"""Times of kernel K6's Jacobi `eigh` and 3x3 `svd` and of the graphed OK frame by kind,
 for one checkout of the PyTorch port on a GPU.
 
 Run from the repository root on a machine with one NVIDIA GPU:
@@ -14,7 +14,9 @@ times it as `chip_smoke.py` does (its helpers are taken from this
 checkout): CUDA events over 100 calls, the profiler's device time over 20,
 `torch.linalg.eigh` beside it; where the checkout's `small_linalg` has
 `eigh_rounds`, the Jacobi rounds of the slowest matrix and device us a
-round. `--frames` also runs `chip_smoke.frames_by_kind`
+round; and the 3x3 SVD at [512, 3, 3] (rank 3 and rank 2, as
+`chip_smoke.py` phase 3b builds it) beside `torch.linalg.svd`.
+`--frames` also runs `chip_smoke.frames_by_kind`
 on the graphed EuRoC-width chain of phase 4 (frames 6-15 of 16 from the
 seeded window): each frame's replay by CUDA events, split into
 marginalizing keyframes and other frames, and K6's clip profiled inside
@@ -85,6 +87,22 @@ def main() -> None:
                        us_per_round=smoke.rec_us_per_round(rounds, rec["device_ms"]))
         print(f"{label}: {rec}")
         out["eigh"][label] = rec
+    # the SVD at the proper rotations' [512, 3, 3], as phase 3b builds it
+    # (rank 3 and rank 2), held to its twin
+    gen = torch.Generator(device=dev).manual_seed(6)
+    a = torch.cat([torch.randn((256, 3, 3), generator=gen, device=dev),
+                   torch.randn((256, 3, 2), generator=gen, device=dev)
+                   @ torch.randn((256, 2, 3), generator=gen, device=dev)])
+    s = small_linalg.svd(a)[1]
+    err = float(((s.double() - small_linalg.svd_plain(a)[1].double()).abs().amax(-1)
+                 / torch.linalg.matrix_norm(a.double())).max())
+    if not err <= smoke.K6_TOL["float32"]:
+        smoke.fail(f"K6 svd: singular values {err:.3g} x ||A|| from the twin")
+    out["svd"] = {"shape": [512, 3, 3], "s_err_rel": err,
+                  "ms": smoke.cuda_ms(lambda: small_linalg.svd(a), reps=EVENT_REPS),
+                  "device_ms": smoke.device_ms(lambda: small_linalg.svd(a), "svd3_kernel"),
+                  "lib_ms": smoke.cuda_ms(lambda: torch.linalg.svd(a), reps=20)}
+    print(f"svd: {out['svd']}")
     if opts.frames:
         from pose_estimation_tpu_torch import graphs
         from pose_estimation_tpu_torch.camera import CameraModel
