@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the six CUDA kernels from `pose_estimation_tpu_torch/csrc/` (and
-the conditional WHILE node of the LM solves' graphs, `graph_while.cu`) and
+the conditional WHILE and IF nodes of the graphs, `graph_cond.cu`) and
 checks each against its torch twin at the shapes the main paths give it,
 timing each by CUDA events and by the profiler's device time: K1 (FAST
 select) at EuRoC scale (752x480 stereo, 8 levels, 800 features) and on the
@@ -48,18 +48,23 @@ each with the kernel counts set to 0 just before and read just after:
   the JAX package's drift;
 - the captured CUDA graphs (`graphs.py`, phase 4c): K1 and K2 read out of
   a graph replay against their twins on another frame's stack than the
-  capture's; phase 4's chain eager and graphed in turns, every frame's
-  metrics and the final state bit-equal, on the kernel path and on the
-  map front end with K4; the staged graphs, the overflow chunks'
+  capture's; phase 4's chain (frame 13 a blank pair, so that the BA's
+  IF node skips its branch on a filled pool) eager and graphed in turns,
+  every frame's metrics, the final state and every solve's LM iterations
+  bit-equal (0 for a solve whose branch a frame did not take), on the
+  kernel path, with keyframe full BA and on the map front end with K4;
+  the staged graphs, the overflow chunks'
   `integrate` graph, `ok_scan` as one graph and the batched step of 8
   lanes, each bit-equal to its eager run; the `imu`, `frame`,
-  `integrate` and `scan` graphs' nodes beside the staged ms; one
+  `integrate` and `scan` graphs' nodes beside the staged ms (the frame's
+  five IF nodes and their bodies apart); one
   replay a fused frame, an `ok_scan` and a batched step, four a staged
   frame; each path's launches as replays x the graph's; each graph's
   capture and instantiate seconds, nodes and pool bytes and the busy
   share of graphed frames; the chain's frames split into marginalizing
-  keyframes and the others, each replay timed by CUDA events, and K6's
-  clip profiled inside two frames of each kind (`frames_by_kind`);
+  keyframes and the others, in the default configuration and with full
+  BA, each replay timed by CUDA events, and K6's clip profiled inside two
+  frames of each kind (`frames_by_kind`);
 - the host state machine (`slam.VisualInertialSLAM`, its OK frames as
   graphs) at KITTI width over a 6-s noisy simulation with the kitti
   profile: it must reach OK, launch K3 and K2 equally and K1 never in
@@ -71,8 +76,10 @@ each with the kernel counts set to 0 just before and read just after:
   and the aligned error under 2 x distance + 1 m, and equal, bit for bit,
   the same run with `graphed=False`, solve by solve in its LM iterations
   (`graphs.iteration_log`; in the graphs each LM loop is a conditional
-  WHILE node that stops at convergence), which it prints by solve with
-  the iterations a steady OK frame leaves out;
+  WHILE node that stops at convergence, and each branch of the frame a
+  conditional IF node that a frame not taking it skips, its solves
+  logging 0), which it prints by solve with the iterations a steady OK
+  frame leaves out;
 - the accuracy protocol of `benchmarks/chip_accuracy.py` through the port
   (family A worlds 0-2 for 6 s, family B worlds 0-1 for 12 s; gates ATE
   < 4 % of path, |ba| < 1.5, |bg| < 0.01), its runs spread over worker
@@ -157,6 +164,9 @@ import numpy as np
 
 N_FRAMES = 16
 WARMUP = 6
+# phase 4c's chain sees a blank stereo pair at this frame: no circular
+# match, so the motion-only BA's conditional branch is skipped on the card
+BLANK_AT = 13
 K1_TOL_XY = 1e-5       # px: same float32 operations as the twin
 K2_TOL_MOM = 1e-5      # of the largest moment: float32 sums in another order
 K2_TOL_VAL = 1e-3      # intensity, on >= 99.9 % of samples (a rounded sample
@@ -543,10 +553,9 @@ def count_prior_clip():
     the clip runs inside the frame's graph, out of Python's sight): K6's
     `eigh` is wrapped while psd_clip runs, and the ratio of the smallest to
     the largest eigenvalue of each matrix stays on the device until the
-    block ends. The frame step computes the marginalization on every frame
-    and keeps it on a keyframe of a full window only; on the other frames
-    it passes the identity, whose Schur complement is a multiple of the
-    identity, and those are not counted. Yields a dict that is then filled
+    block ends. The frame step computes the Schur complement on a keyframe
+    of a full window only; on the other frames the clip gets the identity,
+    and those are not counted. Yields a dict that is then filled
     with the marginalizations, those with a negative eigenvalue (where the
     clip fires) and the most negative ratio."""
     import torch
@@ -785,8 +794,13 @@ def graph_line(name, g) -> str:
     if "nodes" not in g:
         return (f"{name} (eager once, not captured)" if g.get("eager")
                 else f"{name} (not captured: {g['replays']} calls)")
-    body = (f" (+{g['body_nodes']} in {g['conditionals']} conditional bodies)"
-            if g.get("conditionals") else "")
+    # (a checkout before the IF nodes names its WHILE nodes "conditionals")
+    n_while = g.get("while_nodes", g.get("conditionals"))
+    bodies = ([f"+{g.get('while_body_nodes', g.get('body_nodes'))} in {n_while} WHILE bodies"]
+              if n_while else [])
+    if g.get("if_nodes"):
+        bodies.append(f"+{g['if_body_nodes']} in {g['if_nodes']} IF bodies")
+    body = f" ({', '.join(bodies)})" if bodies else ""
     return (f"{name} {'eager once, then ' if g.get('eager') else ''}{g['nodes']} nodes{body}, "
             f"capture {g['capture_s']:.3f} s, instantiate "
             f"{g['instantiate_s']:.3f} s, pool {g['pool_bytes'] / 2**20:.1f} MiB, launches "
@@ -829,8 +843,8 @@ def iteration_line(summary) -> str:
 def frame_iterations(frames) -> dict:
     """The LM iterations of observed OK frames (`observe_ok_frames` under
     `logged_iterations`): by solve over all frames, and the iterations the
-    frames' own step skipped (motion-only and full BA past convergence), a
-    frame."""
+    frames' own step skipped (motion-only and full BA past convergence, or
+    all of a solve whose branch the frame did not take), a frame."""
     counts = [c for f in frames for c in f.get("lm_iters", ())]
     steps = [sum(cap - n for name, n, cap in f.get("lm_iters", ()) if name in ("ba", "full_ba"))
              for f in frames if "lm_iters" in f]
@@ -841,7 +855,8 @@ def frame_iterations(frames) -> dict:
 def frames_by_kind(runner, start, inputs, frames, dev, profiled_per_kind=2) -> dict:
     """The graphed chain's frames by kind: a keyframe that tracks
     marginalizes the window's oldest frame (the seeded window is full) and
-    clips its Schur complement on K6; any other frame clips the identity's
+    clips its Schur complement on K6; any other frame skips the Schur
+    complement (an IF node) and clips the identity
     (models/vio.py:stage_ba_solve). `frames` run from `start` with seeded
     draws, each replay between two CUDA events, enqueued back to back;
     then again, the first `profiled_per_kind` frames of each kind each
@@ -977,11 +992,16 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     out["kernels_in_graph"] = {"k1_xy_err": k1_err, "k2_mom_err": mom_err, "k2_close": close}
     del buf, stack0, stack1, kstep
 
+    blank = torch.zeros_like(inputs[BLANK_AT][0])
+    chain_inputs = [(blank, blank, *x[2:]) if i == BLANK_AT else x
+                    for i, x in enumerate(inputs)]
+
     def chain(st, label, runner=None):
-        """N_FRAMES frames from the seeded window, the draws from seed 0:
-        eager `ok_step` or the runner's replays. Returns (state after the
-        warm-up, final state, each frame's metrics, ms a frame after the
-        warm-up, launches)."""
+        """N_FRAMES frames from the seeded window, the draws from seed 0,
+        frame BLANK_AT a blank pair: eager `ok_step` or the runner's
+        replays. Returns (state after the warm-up, final state, each
+        frame's metrics, ms a frame after the warm-up, launches, the LM
+        iterations that every solve logged)."""
         state = seeded_state(st, truth, dev)
         if runner is not None:
             runner.load_state(state)
@@ -991,24 +1011,26 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
         zero_counters()
         replays = REPLAYS["n"]
         t0 = time.perf_counter()
-        for i in range(N_FRAMES):
-            if i == WARMUP:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                start = graphs.snapshot(state if runner is None else runner.state)
-            if runner is None:
-                state, m = vio.ok_step(state, *inputs[i], gen, consts, st)
-            else:
-                u = vio.draw_ransac_uniforms(gen, dev)
-                m = graphs.snapshot(runner.ok_step(*inputs[i], u))
-                state = runner.state
-            metrics.append(m)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
+        with logged_iterations() as log:
+            for i in range(N_FRAMES):
+                if i == WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    start = graphs.snapshot(state if runner is None else runner.state)
+                if runner is None:
+                    state, m = vio.ok_step(state, *chain_inputs[i], gen, consts, st)
+                else:
+                    u = vio.draw_ransac_uniforms(gen, dev)
+                    m = graphs.snapshot(runner.ok_step(*chain_inputs[i], u))
+                    state = runner.state
+                metrics.append(m)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - WARMUP)
+            iters = graphs.read_iterations(log)
         if runner is not None and REPLAYS["n"] - replays != N_FRAMES:
             fail(f"graphed ok_step chain ({label}): {REPLAYS['n'] - replays} replays in "
                  f"{N_FRAMES} frames (one a frame)")
-        return start, graphs.snapshot(state), metrics, ms, counters()
+        return start, graphs.snapshot(state), metrics, ms, counters(), iters
 
     runs, runner = {}, None
     for turn, mode in enumerate(("eager", "graphed", "graphed", "eager")):
@@ -1016,15 +1038,15 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
             runner = graphs.FrameGraphs(seeded_state(static, truth, dev), consts, static, dev)
         runs.setdefault(mode, []).append(chain(static, mode, runner if mode == "graphed"
                                                 else None))
-    (start, e_state, e_m, e_ms, _), e2 = runs["eager"][0], runs["eager"][1]
+    (start, e_state, e_m, e_ms, _, e_it), e2 = runs["eager"][0], runs["eager"][1]
     g1, g2 = runs["graphed"]
-    same = [equal((e_state, e_m), (r[1], r[2])) for r in (e2, g1, g2)]
+    same = [equal((e_state, e_m), (r[1], r[2])) and r[5] == e_it for r in (e2, g1, g2)]
     print(f"graphed ok_step chain ({N_FRAMES} frames, kernel path, turns E G G E): "
           f"{e_ms:.2f}, {g1[3]:.2f}, {g2[3]:.2f}, {e2[3]:.2f} ms/frame over frames "
           f"{WARMUP}-{N_FRAMES - 1}; eager repeat, graphed runs "
           f"{'bit-equal' if all(same) else 'DIFFER: ' + str(same)} to the first eager run "
-          f"(every frame's metrics and the final state); graphed launches {g1[4]} "
-          f"(frame 0 also warms up), {g2[4]}")
+          f"(every frame's metrics, the final state and every solve's LM iterations); "
+          f"graphed launches {g1[4]} (frame 0 also warms up), {g2[4]}")
     if not all(same):
         fail(f"graphed ok_step chain differs from the eager one (eager repeat, graphed "
              f"runs: {same})")
@@ -1040,20 +1062,50 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
                     "launches": g2[4], "graphs": fused_stats}
     for name, g in fused_stats.items():
         print("  graph " + graph_line(name, g))
+    # frame 0 matches against the empty pool and frame BLANK_AT sees a blank
+    # pair: the BA's branch is not taken, and its solve logs 0 iterations
+    skipped = [i for i, m in enumerate(g2[2]) if int(m["n_tracked"]) == 0]
+    if skipped != [0, BLANK_AT] or [g2[5][i][1] for i in skipped] != [0, 0]:
+        fail(f"graphed ok_step chain: frames with no circular match {skipped}, logged "
+             f"{[g2[5][i] for i in skipped]} (expected frames 0 and {BLANK_AT}, 0 BA "
+             "iterations each)")
     cap = static.max_iterations
     iters = [int(m["ba_iters"]) for m in g2[2]]
     out["chain"]["ba_iterations"] = iters
     print(f"  motion-only BA iterations a frame as the frames report them (cap {cap}; the "
           f"eager and graphed runs bit-equal): {iters}; mean {np.mean(iters):.2f}, "
           f"{cap - np.mean(iters):.2f} a frame skipped by the frame graph's conditional "
-          "nodes")
+          f"nodes (frames 0 and {BLANK_AT} skip the BA's branch)")
+
+    # keyframe full BA: the chain eager and graphed, bit for bit, every
+    # solve's iterations equal (full BA's 0 on a frame that is not a
+    # keyframe)
+    full_static = dataclasses.replace(static, full_ba_keyframes=True)
+    fe = chain(full_static, "full BA, eager")
+    full_runner = graphs.FrameGraphs(seeded_state(full_static, truth, dev), consts,
+                                     full_static, dev)
+    fg = chain(full_static, "full BA, graphed", full_runner)
+    full_same = equal((fe[1], fe[2]), (fg[1], fg[2])) and fe[5] == fg[5]
+    full_skips = sum(1 for name, n, _ in fg[5] if name == "full_ba" and n == 0)
+    print(f"graphed ok_step chain with keyframe full BA: {fe[3]:.2f} ms/frame eager, "
+          f"{fg[3]:.2f} graphed; " + ("bit-equal" if full_same else "DIFFERS")
+          + f" (metrics, state, LM iterations solve by solve); full BA skipped on {full_skips} "
+          f"of {N_FRAMES} frames; " + iteration_line(iteration_summary(fg[5])))
+    if not full_same:
+        fail("graphed ok_step chain with full BA differs from the eager one")
+    if not full_skips:
+        fail("graphed ok_step chain with full BA: no frame skipped its branch")
+    out["full_ba_chain"] = {"ms_per_frame": {"eager": fe[3], "graphed": fg[3]},
+                            "full_ba_skipped": full_skips, "graphs": full_runner.stats()}
+    for name, g in full_runner.stats().items():
+        print("  graph " + graph_line(name, g))
 
     # the map front end with K4
     map_static = dataclasses.replace(static, orb=static.orb._replace(**MAP_FRONT))
-    _, me_state, me_m, me_ms, _ = chain(map_static, "eager")
+    _, me_state, me_m, me_ms, _, _ = chain(map_static, "eager")
     map_runner = graphs.FrameGraphs(seeded_state(map_static, truth, dev), consts, map_static,
                                     dev)
-    _, mg_state, mg_m, mg_ms, mg_l = chain(map_static, "graphed", map_runner)
+    _, mg_state, mg_m, mg_ms, mg_l, _ = chain(map_static, "graphed", map_runner)
     map_same = equal((me_state, me_m), (mg_state, mg_m))
     print(f"graphed ok_step chain, map front end (K1, K4): {me_ms:.2f} ms/frame eager, "
           f"{mg_ms:.2f} graphed; " + ("bit-equal" if map_same else "DIFFERS")
@@ -1074,25 +1126,29 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     ugen = torch.Generator(device=dev).manual_seed(1)
     us = [vio.draw_ransac_uniforms(ugen, dev) for _ in frames_s]
     ref, ref_m = start, []
-    for u, i in zip(us, frames_s):
-        ref, m = vio.ok_step(ref, *inputs[i], None, consts, static, ransac_u=u)
-        ref_m.append(m)
+    with logged_iterations() as log:
+        for u, i in zip(us, frames_s):
+            ref, m = vio.ok_step(ref, *inputs[i], None, consts, static, ransac_u=u)
+            ref_m.append(m)
+        ref_it = graphs.read_iterations(log)
     staged = graphs.FrameGraphs(start, consts, static, dev)
     zero_counters()
     st_m, st_replays = [], []
-    with timed_stages(graphed=True) as timers:
+    with timed_stages(graphed=True) as timers, logged_iterations() as log:
         for u, i in zip(us, frames_s):
             before = REPLAYS["n"]
             st_m.append(graphs.snapshot(staged.staged_step(*inputs[i], u)))
             st_replays.append(REPLAYS["n"] - before)
+        st_it = graphs.read_iterations(log)
     st_launches = counters()
     split = {k: timers.total[k] * 1e3 / max(timers.count[k], 1) for k in ("imu", "frontend", "ba",
                                                                    "pool")}
-    staged_same = equal(ref, staged.state) and all(equal(a, b) for a, b in zip(ref_m, st_m))
+    staged_same = (equal(ref, staged.state) and all(equal(a, b) for a, b in zip(ref_m, st_m))
+                   and st_it == ref_it)
     print(f"staged graphs ({len(frames_s)} frames from the chain's frame {WARMUP}, each stage "
           f"synchronized, the first frame's captures left out): "
           + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-          + f" ms, sum {sum(split.values()):.2f}; state and metrics "
+          + f" ms, sum {sum(split.values()):.2f}; state, metrics and LM iterations "
           + ("bit-equal to the fused eager frames" if staged_same else "DIFFER")
           + f"; launches {st_launches}")
     if not staged_same:
@@ -1134,26 +1190,32 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
     # ok_scan as one graph of SCAN_FRAMES frames
     sel_f = frames_s[:SCAN_FRAMES]
     stacked = [torch.stack([inputs[i][k] for i in sel_f]) for k in range(5)]
-    e_scan_state, e_outs = vio.ok_scan(start, *stacked,
-                                       torch.Generator(device=dev).manual_seed(2), consts,
-                                       static)
+    with logged_iterations() as log:
+        e_scan_state, e_outs = vio.ok_scan(start, *stacked,
+                                           torch.Generator(device=dev).manual_seed(2), consts,
+                                           static)
+        e_scan_it = graphs.read_iterations(log)
     runner.load_state(start)
     zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     before = REPLAYS["n"]
-    g_outs = runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
-    torch.cuda.synchronize()
-    scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
+    with logged_iterations() as log:
+        g_outs = runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
+        g_scan_it = graphs.read_iterations(log)
     scan_launches, scan_replays = counters(), REPLAYS["n"] - before
-    scan_same = equal(e_scan_state, runner.state) and equal(e_outs, g_outs)
+    scan_same = (equal(e_scan_state, runner.state) and equal(e_outs, g_outs)
+                 and g_scan_it == e_scan_it)
     t0 = time.perf_counter()
     runner.load_state(start)
     runner.ok_scan(*stacked, torch.Generator(device=dev).manual_seed(2))
     torch.cuda.synchronize()
     scan_replay_ms = (time.perf_counter() - t0) * 1e3 / SCAN_FRAMES
     print(f"ok_scan as one graph of {SCAN_FRAMES} frames: "
-          + ("bit-equal to the eager ok_scan" if scan_same else "DIFFERS")
+          + ("bit-equal to the eager ok_scan (state, outputs, LM iterations)" if scan_same
+             else "DIFFERS")
           + f"; {scan_replays} replay; {scan_ms:.2f} ms a frame with the warm-up and capture, "
           f"{scan_replay_ms:.2f} replayed; launches {scan_launches}; graph "
           + graph_line("scan", runner.stats()["scan"]))
@@ -1166,11 +1228,19 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
              "warm-up)")
     out["ok_scan"] = {"ms_per_frame": scan_ms, "replayed_ms_per_frame": scan_replay_ms,
                       "launches": scan_launches, "graph": runner.stats()["scan"]}
-    nodes = {"imu": staged_stats["imu"]["nodes"], "frame": fused_stats["frame"]["nodes"],
+    frame_g = fused_stats["frame"]
+    nodes = {"imu": staged_stats["imu"]["nodes"], "frame": frame_g["nodes"],
+             "frame_while_body": frame_g["while_body_nodes"],
+             "frame_if_body": frame_g["if_body_nodes"], "frame_if": frame_g["if_nodes"],
              "integrate": int_stats["nodes"], "scan": runner.stats()["scan"]["nodes"]}
-    print(f"graph nodes: imu {nodes['imu']}, frame {nodes['frame']}, integrate "
-          f"{nodes['integrate']}, scan {nodes['scan']} ({SCAN_FRAMES} frames); staged ms, "
-          "each stage synchronized: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    print(f"graph nodes: imu {nodes['imu']}, frame {nodes['frame']} (+{nodes['frame_while_body']}"
+          f" in its WHILE bodies, +{nodes['frame_if_body']} in its {nodes['frame_if']} IF "
+          f"bodies), integrate {nodes['integrate']}, scan {nodes['scan']} ({SCAN_FRAMES} "
+          "frames); staged ms, each stage synchronized: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    if nodes["frame_if"] != 5:
+        fail(f"the frame graph holds {nodes['frame_if']} IF nodes (the window's re-predict, "
+             "the BA, the Schur complement, its application and the pool update: 5)")
     out["graph_nodes"] = nodes
 
     # the device's busy share of graphed frames under the profiler (the
@@ -1204,18 +1274,23 @@ def graph_checks(dev, consts, static, inputs, truth, frames, gyrs, accs, mask) -
                device_summed_ms_per_frame=act["summed_ms"] / 4,
                busy_share_profiled=act["busy_ms"] / wall_ms, graph_replay_ms=replay_ms,
                graph_share_unprofiled=graphs_ms / g2[3])
-    kinds = frames_by_kind(runner, start, inputs, frames_s, dev)
-    for kind, k in kinds.items():
-        print(f"graphed chain, {kind} frames {k['frames']}: event ms "
-              + ", ".join(f"{x:.3f}" for x in k["event_ms"])
-              + (f" (mean {k['mean_event_ms']:.3f})" if k["event_ms"] else "")
-              + "; profiled alone: "
-              + ("; ".join(f"frame {r['frame']} busy {r['busy_ms']:.3f} device ms, K6 clip "
-                           f"{r['clip_device_ms']:.4f} in {r['clip_launches']} launch"
-                           for r in k["profiled"]) or "none"))
-        if any(r["clip_launches"] != 1 for r in k["profiled"]):
-            fail(f"graphed chain, {kind} frames: K6's clip not once a replay: {k['profiled']}")
-    out["frames_by_kind"] = kinds
+    out["frames_by_kind"] = {}
+    for config, frame_runner, frame_start in (("default", runner, start),
+                                              ("full BA", full_runner, fe[0])):
+        kinds = out["frames_by_kind"][config] = frames_by_kind(frame_runner, frame_start,
+                                                               inputs, frames_s, dev)
+        for kind, k in kinds.items():
+            print(f"graphed chain, {config}, {kind} frames {k['frames']}: event ms "
+                  + ", ".join(f"{x:.3f}" for x in k["event_ms"])
+                  + (f" (mean {k['mean_event_ms']:.3f})" if k["event_ms"] else "")
+                  + "; profiled alone: "
+                  + ("; ".join(f"frame {r['frame']} busy {r['busy_ms']:.3f} device ms, K6 "
+                               f"clip {r['clip_device_ms']:.4f} in {r['clip_launches']} launch"
+                               for r in k["profiled"]) or "none"))
+            if any(r["clip_launches"] != 1 for r in k["profiled"]):
+                fail(f"graphed chain, {config}, {kind} frames: K6's clip not once a replay: "
+                     f"{k['profiled']}")
+    del full_runner
 
     # the batched step, B = BATCH: eager against graphed
     lanes = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -60,13 +60,19 @@ replayed.
 
 The LM solves' iterations past convergence (`backend/lm.py`,
 `backend/full_ba.py`) do not run on the device: in a capture each solve's
-loop is one conditional WHILE node (`iterate`, `csrc/graph_while.cu`), the
+loop is one conditional WHILE node (`iterate`, `csrc/graph_cond.cu`), the
 counterpart of the JAX package's `lax.while_loop`, its body one iteration.
-The iterations it leaves out are the no-ops that the fixed loop's frozen
-iterations are, so a replay equals the eager run bit for bit; the eager
-path (`graphed=False`) and the CPU keep the fixed loop as the yardstick. A
-step's `stats` count the nodes of its top-level graph and, apart, those
-inside its conditional bodies.
+Nor do the frame step's branches that a frame does not take (motion-only
+BA without circular matches, keyframe full BA, the marginalization and
+the pool update off their frames, `models/vio.py`; the window's
+re-predict on a keyframe, `models/window.py`): each is one conditional IF
+node (`cond`), the counterpart of the JAX package's `lax.cond`, and an IF
+body may hold a solve's WHILE node. What the nodes leave out are the
+fixed loop's frozen iterations and the branches that the select drops, so
+a replay equals the eager run bit for bit; the eager path
+(`graphed=False`) and the CPU keep the fixed loop and the select as the
+yardstick. A step's `stats` count the nodes of its top-level graph and,
+apart, those inside its WHILE and its IF bodies.
 
 On the CPU, which the tests use, the same plumbing runs without capture:
 each call runs the function on the static buffers and copies its outputs
@@ -186,9 +192,10 @@ def read_iterations(entries) -> list:
 
 @contextlib.contextmanager
 def host_conditionals():
-    """For the CPU tests: inside the block `iterate` runs its conditional
-    form on the host, the carry in buffers that each iteration overwrites,
-    reading the loop's test on the host and stopping where it is false."""
+    """For the CPU tests: inside the block `iterate` and `cond` run their
+    conditional forms on the host, on the buffers that the nodes' bodies
+    write: `iterate` reads the loop's test on the host and stops where it is
+    false, `cond` reads its predicate and runs its branch or not."""
     global _host_conditionals
     before, _host_conditionals = _host_conditionals, True
     try:
@@ -197,28 +204,33 @@ def host_conditionals():
         _host_conditionals = before
 
 
+def _selecting(step) -> bool:
+    """Whether a conditional runs as the fixed loop or the select: outside a
+    capture and `host_conditionals`, and under `torch.func.vmap`."""
+    return (torch._C._functorch.peek_interpreter_stack() is not None
+            or (step is None and not _host_conditionals))
+
+
 def iterate(body, carry, iterations: int, live):
     """`carry = body(carry)`, `iterations` times: an LM solve's loop, whose
     body leaves the carry unchanged once `live(carry)` (a bool scalar
     tensor) is false, so that an iteration past convergence is a no-op.
 
     In a capture of a `CapturedStep` the loop is one conditional WHILE node
-    (`csrc/graph_while.cu`) whose body, one iteration, is captured once:
+    (`csrc/graph_cond.cu`) whose body, one iteration, is captured once:
     the device runs it while the solve is live and under its cap, and then
     stops, as the JAX package's `lax.while_loop` does. The carry, the count
     and the loop's test live in buffers allocated before the node, which
     the body overwrites in place (`commit`); the body's own tensors come
-    from a memory pool of the step's (`CapturedStep.body_pool`) on a stream
-    of their own (`_body_stream`). The iterations not run are exactly the
-    fixed loop's frozen ones, so the result is the fixed loop's bit for
-    bit. A body holds no hand kernel (their launch counters assume that
-    every recorded launch replays). Outside a capture, and under
+    from a memory pool of the step's for its depth of nesting
+    (`CapturedStep.body_pools`) on a stream of their own (`_body_stream`).
+    The iterations not run are exactly the fixed loop's frozen ones, so the
+    result is the fixed loop's bit for bit. Outside a capture, and under
     `torch.func.vmap` (whose while_loop JAX runs as a select on every
     lane), the fixed loop runs; inside `host_conditionals` the host tests
     the flag and stops."""
     step = _capturing
-    if (iterations <= 0 or torch._C._functorch.peek_interpreter_stack() is not None
-            or (step is None and not _host_conditionals)):
+    if iterations <= 0 or _selecting(step):
         for _ in range(iterations):
             carry = body(carry)
         return carry
@@ -234,49 +246,150 @@ def iterate(body, carry, iterations: int, live):
     if step is None:
         while bool(flag):
             run()
-        return carry
+    else:
+        _conditional(step, "while", flag, run)
+    return carry
+
+
+def cond(pred, branch, otherwise, solves=()):
+    """`branch()` where the bool scalar tensor `pred` holds, else
+    `otherwise`: the JAX package's `lax.cond` for a branch whose other side
+    returns the carry as it is, or constants. `branch()` returns a tree of
+    tensors equal to `otherwise` in structure, shapes and types; a leaf it
+    returns unchanged (the same tensor object as `otherwise`'s) is not
+    written. `solves` are the (name, cap) of the LM solves the branch runs,
+    in the order they log (`log_iterations`): a solve of a branch not
+    taken logs 0 iterations, in every form, as JAX's `skip_ba` does.
+
+    In a capture of a `CapturedStep` the branch is one conditional IF node
+    (`csrc/graph_cond.cu`) whose body is the branch, captured once: the
+    device runs it only where `pred` holds, as JAX runs one side of the
+    cond. The untaken side's values are copied into buffers before the
+    node (`snapshot`, one launch) with the solves' iteration counts zeroed,
+    and the body overwrites them with the branch's results. A body may hold
+    an `iterate` (a WHILE node nested in the IF node), but no hand kernel.
+    Eagerly and under `torch.func.vmap` (JAX's vmapped cond is a select)
+    the branch is computed and selected (`models.vio.select`), its solves'
+    counts made 0 where `pred` is false: the bit-equal yardstick. Inside
+    `host_conditionals` the host reads `pred` and runs the branch on the
+    buffers, or returns `otherwise` as it is."""
+    step = _capturing
+    if _selecting(step):
+        log = (iteration_log if step is None
+               and torch._C._functorch.peek_interpreter_stack() is None else None)
+        mark = len(log) if log is not None else 0
+        out = branch()
+        if log is not None:
+            _check_solves(log[mark:], solves)
+            log[mark:] = [(name, torch.where(pred, it, 0), cap) for name, it, cap in log[mark:]]
+        return vio_mod.select(pred, out, otherwise)
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError("cond: the predicate is a bool scalar tensor")
+    counts = torch.zeros(len(solves), dtype=torch.int32, device=pred.device)
+    log = step.iterations if step is not None else iteration_log
+    if step is None and not bool(pred):
+        if log is not None:
+            log.extend((name, counts[k], cap) for k, (name, cap) in enumerate(solves))
+        return otherwise
+    buffers = snapshot(otherwise)
+    changed = []
+
+    def run():
+        mark = len(log) if log is not None else 0
+        new = branch()
+        if log is not None:
+            _check_solves(log[mark:], solves)
+            for k, (_, it, _) in enumerate(log[mark:]):
+                counts[k].copy_(it)
+            del log[mark:]
+        dst, src, old = tree_leaves(buffers), tree_leaves(new), tree_leaves(otherwise)
+        if len(src) != len(old) or any(s.shape != o.shape or s.dtype != o.dtype
+                                       for s, o in zip(src, old)):
+            raise ValueError("cond: the branch's leaves differ from the untaken side's")
+        changed[:] = [s is not o for s, o in zip(src, old)]
+        for d, s, c in zip(dst, src, changed):
+            if c:
+                d.copy_(s)
+
+    if step is None:
+        run()
+    else:
+        _conditional(step, "if", pred, run)
+    if log is not None:
+        log.extend((name, counts[k], cap) for k, (name, cap) in enumerate(solves))
+    # the leaves the branch left alone are the untaken side's own tensors
+    leaves = [d if c else o for d, o, c in zip(tree_leaves(buffers), tree_leaves(otherwise),
+                                                changed)]
+    return tree_unflatten(otherwise, iter(leaves))
+
+
+def _check_solves(entries, solves) -> None:
+    names = [name for name, _, _ in entries]
+    if names != [name for name, _ in solves]:
+        raise RuntimeError(f"cond: the branch logged the solves {names}, declared "
+                           f"{[name for name, _ in solves]}")
+
+
+# the depths of conditional bodies a capture may nest (an IF body holding
+# a WHILE node is two)
+_DEPTHS = 2
+
+
+def _conditional(step, kind: str, flag, run) -> None:
+    """Capture `run()` as the body of a conditional node of `kind` ("while"
+    or "if", `csrc/graph_cond.cu`) on the stream that captures now, its test
+    the bool tensor `flag` (read before the node, and for "while" again at
+    the body's end). The body is captured on the body stream of its depth,
+    its tensors from the step's body pool of that depth. It may not launch
+    a hand kernel: their launch counters assume that every recorded launch
+    replays."""
     lib, dev = kernels.library(), flag.device
-    side = _body_stream(dev)
+    depth = step.depth
+    if depth >= _DEPTHS:
+        raise RuntimeError(f"conditional bodies nested deeper than {_DEPTHS}")
+    side, pool = _body_stream(dev, depth), step.body_pools[depth]
+    begin = lib.graph_while_begin if kind == "while" else lib.graph_if_begin
     handle, graph = ctypes.c_ulonglong(0), ctypes.c_void_p(0)
     before = kernel_counts()
-    kernels.check(lib.graph_while_begin(torch.cuda.current_stream(dev).cuda_stream,
-                                        side.cuda_stream, flag.data_ptr(),
-                                        ctypes.byref(handle), ctypes.byref(graph)),
-                  "graph_while_begin")
+    kernels.check(begin(torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream,
+                        flag.data_ptr(), ctypes.byref(handle), ctypes.byref(graph)),
+                  f"graph_{kind}_begin")
+    step.depth += 1
     try:
         with torch.cuda.stream(side):
-            torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, step.body_pool)
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
             try:
                 run()
             finally:
-                torch._C._cuda_endAllocateToPool(dev.index, step.body_pool)
+                torch._C._cuda_endAllocateToPool(dev.index, pool)
     finally:
-        err = lib.graph_while_end(side.cuda_stream, handle, flag.data_ptr())
-    kernels.check(err, "graph_while_end")
-    step.body_nodes += _nodes(graph.value)
-    step.conditionals += 1
+        step.depth -= 1
+        err = (lib.graph_while_end(side.cuda_stream, handle, flag.data_ptr())
+               if kind == "while" else lib.graph_if_end(side.cuda_stream))
+    kernels.check(err, f"graph_{kind}_end")
+    step.stats_of[kind] += 1
+    step.stats_of[kind + "_body"] += _nodes(graph.value)
     if kernel_counts() != before:
         raise RuntimeError("a hand kernel launched inside a conditional body: its launch "
                            "counter would count replays that skip it")
-    return carry
 
 
 _body_streams: dict = {}
 
 
-def _body_stream(device: torch.device) -> torch.cuda.Stream:
-    """The stream that captures the conditional bodies on `device`, made
-    and warmed up once (a cuBLAS product, a Cholesky factorization and a
-    triangular solve run on it eagerly, so that their handles and
-    workspaces exist before a capture needs them)."""
+def _body_stream(device: torch.device, depth: int) -> torch.cuda.Stream:
+    """The stream that captures the conditional bodies of `depth` on
+    `device`, made and warmed up once (a cuBLAS product, a Cholesky
+    factorization and a triangular solve run on it eagerly, so that their
+    handles and workspaces exist before a capture needs them)."""
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    side = _body_streams.get(device)
+    side = _body_streams.get((device, depth))
     if side is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the conditional bodies' stream is made before a capture "
+            raise RuntimeError("the conditional bodies' streams are made before a capture "
                                "(CapturedStep._capture)")
-        side = _body_streams[device] = torch.cuda.Stream(device)
+        side = _body_streams[device, depth] = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             a = torch.eye(4, device=device) + torch.ones(4, 4, device=device) @ torch.eye(
@@ -313,7 +426,7 @@ def pool_bytes(pool) -> int:
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """The top-level node count of a graph captured with `keep_graph=True`
     (a conditional node counts as one; its body's nodes are counted apart,
-    `CapturedStep.body_nodes`)."""
+    `CapturedStep.stats`)."""
     return _nodes(graph.raw_cuda_graph())
 
 
@@ -351,22 +464,25 @@ class CapturedStep:
         # kernel launches held by the graph, and the capture's costs
         self.launches: dict = {}
         self.stats: dict = {}
-        # the graph's conditional nodes and the nodes of their bodies, the
-        # memory pool of the bodies' own tensors, and its LM solves' (name,
-        # iteration count buffer, cap)
-        self.conditionals = 0
-        self.body_pool = None
-        self.body_nodes = 0
+        # the graph's conditional nodes by kind and the nodes of their
+        # bodies, the memory pools of the bodies' own tensors (one for each
+        # depth of nesting), the depth the capture is at, and its LM solves'
+        # (name, iteration count buffer, cap)
+        self.stats_of = dict.fromkeys(("while", "while_body", "if", "if_body"), 0)
+        self.body_pools: list = []
+        self.depth = 0
         self.iterations: list = []
 
     def _capture(self):
         global _capturing
         before = kernel_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        self.conditionals, self.body_nodes, self.iterations = 0, 0, []
-        if self.body_pool is None:
-            self.body_pool = torch.cuda.graph_pool_handle()
-        _body_stream(self.device)
+        self.stats_of = dict.fromkeys(self.stats_of, 0)
+        self.depth, self.iterations = 0, []
+        while len(self.body_pools) < _DEPTHS:
+            self.body_pools.append(torch.cuda.graph_pool_handle())
+        for depth in range(_DEPTHS):
+            _body_stream(self.device, depth)
         t0 = time.perf_counter()
         mode = torch.cuda.get_sync_debug_mode()
         collecting = gc.isenabled()
@@ -399,8 +515,10 @@ class CapturedStep:
         # the pool's size after this capture (a runner's pool is shared by
         # its graphs)
         self.stats = {"capture_s": t1 - t0, "instantiate_s": t2 - t1,
-                      "nodes": graph_nodes(graph), "conditionals": self.conditionals,
-                      "body_nodes": self.body_nodes, "pool_bytes": pool_bytes(graph.pool())}
+                      "nodes": graph_nodes(graph), "while_nodes": self.stats_of["while"],
+                      "while_body_nodes": self.stats_of["while_body"],
+                      "if_nodes": self.stats_of["if"], "if_body_nodes": self.stats_of["if_body"],
+                      "pool_bytes": pool_bytes(graph.pool())}
 
     def __call__(self):
         if self.device.type == "cuda":

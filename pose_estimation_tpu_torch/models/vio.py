@@ -8,16 +8,17 @@ Counterpart of `pose_estimation_tpu/models/vio.py` (`build_constants`,
 `stage_frontend`, `stage_ba` and `stage_pool`, `sfm_step`,
 `bootstrap_frame`). The frame step is the composition of the stages, so
 the fused step and the staged OK path of `slam.py` run one body of code.
-The JAX
-`lax.cond` branches run both sides and select per sequence with
-`torch.where`, as `lax.cond` does under `vmap`: BA is skipped without
+The JAX `lax.cond` branches are `graphs.cond`: BA is skipped without
 circular matches, keyframe full BA (where configured), the
-marginalization and the pool update run on keyframes only, with no host
-read inside the step. So the step after ORB
-extraction (`track_step`) maps over a batch of sequences with
-`torch.func.vmap` (`parallel/batched.py`), while ORB runs once for the
-whole batch (`extract_rectified_batch`). The front end follows the JAX
-package's kernel path unless the configuration asks for the map path
+marginalization and the pool update run on keyframes only, the window's
+re-predict off them. In a captured graph each is a conditional IF node
+that skips the branch not taken; eagerly and under `vmap` both sides run
+and `torch.where` selects per sequence, as `lax.cond` does under `vmap`.
+No host read is inside the step. So the step after ORB extraction
+(`track_step`) maps over a batch of sequences with `torch.func.vmap`
+(`parallel/batched.py`), while ORB runs once for the whole batch
+(`extract_rectified_batch`). The front end follows the JAX package's
+kernel path unless the configuration asks for the map path
 (`sample_backend="xla"`) or the plain detection (`fast_backend="xla"`); on
 a CUDA device it launches the CUDA kernels, on a CPU device their torch
 twins.
@@ -261,7 +262,7 @@ def front_end(img_l, img_r, pool, ransac_u, consts: VIOConstants, static: VIOSta
 
 def select(cond, a, b):
     """`a` where the bool scalar tensor `cond` holds, else `b`, leaf by leaf
-    over equal (nested) NamedTuples of tensors: `lax.cond` with both sides
+    over equal (nested) tuples of tensors: `lax.cond` with both sides
     computed, per sequence under `vmap`. A leaf that both sides share (the
     same tensor object: a field the branch left alone) is kept as it is,
     with no launch."""
@@ -269,7 +270,8 @@ def select(cond, a, b):
         return a
     if isinstance(a, torch.Tensor):
         return torch.where(cond, a, b)
-    return type(a)(*(select(cond, x, y) for x, y in zip(a, b)))
+    parts = [select(cond, x, y) for x, y in zip(a, b)]
+    return type(a)(*parts) if hasattr(a, "_fields") else type(a)(parts)
 
 
 def keyframe_full_ba(win, pool, consts: VIOConstants, static: VIOStatic):
@@ -369,58 +371,85 @@ def stage_frontend(state: VIOState, img_l, img_r, ransac_u, consts: VIOConstants
     return stage_match(state, feats_l, feats_r, ransac_u, static)
 
 
+def _cond(pred, branch, otherwise, solves=()):
+    """`graphs.cond`: an IF node in a captured graph, else the select."""
+    # imported here: graphs imports this module
+    from pose_estimation_tpu_torch import graphs
+
+    return graphs.cond(pred, branch, otherwise, solves)
+
+
 def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
                    static: VIOStatic) -> BackendCarry:
-    """`stage_ba` up to the PSD clip: motion-only BA (its result kept only
-    with circular matches), keyframe decision, keyframe full BA (where
+    """`stage_ba` up to the PSD clip: motion-only BA (with circular matches
+    only), keyframe decision, keyframe full BA (on a keyframe, where
     configured) and the Schur complement of the marginalization (on a
-    keyframe of a full window), each computed and then selected. The
-    keyframe decision stays the motion-only solve's; the marginalization
-    takes the motion-only information at the state after full BA."""
+    keyframe of a full window), each a `graphs.cond` on its predicate (JAX
+    `lax.cond`; on a frame that marginalizes nothing the Schur complement
+    is the identity, which the clip passes with no round). The keyframe
+    decision stays the motion-only solve's; the marginalization takes the
+    motion-only information at the state after full BA."""
     with _span("ok_step.backend"):
         win = state.win
         wsize = win.R.shape[0] - 1
+        dtype, dev = win.R.dtype, win.R.device
         has_matches = tr_n_matches > 0
         obs = LandmarkObs(state.pool.pos, state.pool.obs_px, state.pool.obs_mask)
-        dpose, dvdbga, info = ba_mod.motion_only_ba(
-            win, obs, consts.calib, consts.gravity, static.prior_factor,
-            static.max_iterations, use_marg_prior=static.marg_prior,
-            ba_prior_sigma=static.ba_prior_sigma,
-        )
-        solved = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
-                                      static.max_acc_bias)
-        solved = win_mod.check_keyframe(solved, static.keyframe_rotation,
-                                        static.keyframe_translation, static.max_imu_time)
-        win = select(has_matches, solved, win)
-        ba_cost = torch.where(has_matches, info["final_cost"], 0.0)
-        ba_iters = torch.where(has_matches, info["iterations"], 0)
+        # the information that the marginalization takes (JAX's `skip_ba`
+        # gives zeros); none without the marginalization prior
+        n_h = 15 * wsize if static.marg_prior else 0
+        no_h = torch.zeros((n_h, n_h), dtype=dtype, device=dev)
+
+        def do_ba(win=win):
+            dpose, dvdbga, info = ba_mod.motion_only_ba(
+                win, obs, consts.calib, consts.gravity, static.prior_factor,
+                static.max_iterations, use_marg_prior=static.marg_prior,
+                ba_prior_sigma=static.ba_prior_sigma,
+            )
+            solved = win_mod.apply_deltas(win, dpose, dvdbga, static.max_gyr_bias,
+                                          static.max_acc_bias)
+            solved = win_mod.check_keyframe(solved, static.keyframe_rotation,
+                                            static.keyframe_translation, static.max_imu_time)
+            return (solved, info["final_cost"], info["iterations"],
+                    info["marg_h"] if static.marg_prior else no_h)
+
+        win, ba_cost, ba_iters, marg_h = _cond(
+            has_matches, do_ba,
+            (win, torch.zeros((), dtype=dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev), no_h),
+            solves=(("ba", static.max_iterations),))
         kf = win.is_keyframe & has_matches
         pool = state.pool
         if static.full_ba_keyframes:
-            full_win, full_pool = keyframe_full_ba(win, pool, consts, static)
-            win, pool = select(kf, full_win, win), select(kf, full_pool, pool)
+            def do_full(win=win, pool=pool):
+                full_win, full_pool = keyframe_full_ba(win, pool, consts, static)
+                return full_win, full_pool.pos
+
+            win, pos = _cond(kf, do_full, (win, pool.pos),
+                             solves=(("full_ba", static.full_ba_iterations),))
+            pool = pool._replace(pos=pos)
         do_marg = torch.zeros_like(kf)
-        schur = torch.zeros((0, 0), dtype=win.R.dtype, device=win.R.device)
+        schur = torch.zeros((0, 0), dtype=dtype, device=dev)
         if static.marg_prior:
             do_marg = kf & (win.n_act >= wsize)
-            # the side not taken gets a benign information matrix, so that its
-            # solve and eigendecomposition see finite, well-conditioned input
-            eye = torch.eye(15 * wsize, dtype=win.R.dtype, device=win.R.device)
-            ba_h = torch.where(do_marg, info["marg_h"], eye)
-            schur = ba_mod.marg_schur(ba_h, wsize, static.marg_forget)
+            schur = _cond(do_marg, lambda: ba_mod.marg_schur(marg_h, wsize, static.marg_forget),
+                          torch.eye(15 * (wsize - 1), dtype=dtype, device=dev))
         return BackendCarry(state._replace(win=win, pool=pool), ba_cost, ba_iters, kf,
                             do_marg, schur)
 
 
 def stage_ba_finish(carry: BackendCarry, schur_psd, static: VIOStatic):
     """`stage_ba` after the PSD clip: the marginalization prior from the
-    clipped Schur complement (`psd_clip(carry.schur)`), then the bias
-    bookkeeping. Returns (state, ba_cost, ba_iters)."""
+    clipped Schur complement (`psd_clip(carry.schur)`, a `graphs.cond` on
+    the marginalization's predicate), then the bias bookkeeping and the
+    preintegrator's reset on a keyframe (a select: 21 operations, cheaper
+    than an IF node's body on the keyframes that take it). Returns (state,
+    ba_cost, ba_iters)."""
     with _span("ok_step.backend"):
         state, kf = carry.state, carry.kf
         win = state.win
         if static.marg_prior:
-            win = select(carry.do_marg, ba_mod.marg_apply(win, schur_psd), win)
+            win = _cond(carry.do_marg, lambda: ba_mod.marg_apply(win, schur_psd), win)
         new_bg = torch.where(kf, win.ics.bg_i[-1] + win.dbg[-1], state.bg)
         new_ba = torch.where(kf, win.ics.ba_i[-1] + win.dba[-1], state.ba)
         preint = select(kf, pre.init_state(win.R.device), state.preint)
@@ -437,12 +466,14 @@ def stage_ba(state: VIOState, tr_n_matches, consts: VIOConstants, static: VIOSta
 
 def stage_pool(state: VIOState, cur, tr, tr_n_matches, consts: VIOConstants,
                static: VIOStatic) -> VIOState:
-    """The pool update, kept on a keyframe with matches or while the pool
-    is empty."""
+    """The pool update (a `graphs.cond`), on a keyframe with matches or
+    while the pool is empty."""
     with _span("ok_step.pool"):
         kf = state.win.is_keyframe & (tr_n_matches > 0)
         do_pool = kf | ~torch.any(state.pool.valid)
-        return select(do_pool, pool_update(state, cur, tr, consts, static), state)
+        pool = _cond(do_pool, lambda: pool_update(state, cur, tr, consts, static).pool,
+                     state.pool)
+        return state._replace(pool=pool)
 
 
 def frame_metrics(state: VIOState, cur, tr, ba_cost, ba_iters, imu_dt, p_pred) -> dict:

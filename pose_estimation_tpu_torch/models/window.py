@@ -128,20 +128,23 @@ def _roll_set_last(a: torch.Tensor, last: torch.Tensor, kf) -> torch.Tensor:
 
 def push_constraint(win: WindowState, ic_new: ImuConstraint, gravity) -> WindowState:
     """Append (after a keyframe) or re-predict (otherwise) the newest frame
-    from the IMU constraint (`Map::pushImuConstraint`). Both branches are
-    computed and selected on device, so the host never waits."""
+    from the IMU constraint (`Map::pushImuConstraint`), with no host read.
+    The keyframe's prediction is computed on every frame; the re-predict,
+    the dearer side (a bias-corrected rotation), is a `graphs.cond`: an IF
+    node that a keyframe skips in a captured graph, a select eagerly and
+    under `vmap`."""
+    # imported here: graphs imports the models, which import this module
+    from pose_estimation_tpu_torch import graphs
+
     kf = win.is_keyframe
     wsize = win.R.shape[0] - 1
     # keyframe: predict from the last keyframe (slot W, before the roll)
     # with the raw deltas; else from slot W-1 with the bias-corrected ones
-    R_k, v_k, p_k = pre.predict(win.R[-1], win.v[-1], win.p[-1], ic_new, gravity)
-    R_n, v_n, p_n = pre.predict(
+    predicted = pre.predict(win.R[-1], win.v[-1], win.p[-1], ic_new, gravity)
+    R_j, v_j, p_j = graphs.cond(~kf, lambda: pre.predict(
         win.R[-2], win.v[-2], win.p[-2], ic_new, gravity,
         dbg_i=win.dbg[-2], dba_i=win.dba[-2],
-    )
-    R_j = torch.where(kf, R_k, R_n)
-    v_j = torch.where(kf, v_k, v_n)
-    p_j = torch.where(kf, p_k, p_n)
+    ), predicted)
     zero3 = torch.zeros_like(win.dbg[-1])
     ics = ImuConstraint(*(
         _roll_set_last(a, n, kf) for a, n in zip(win.ics, ic_new)

@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of `csrc/`.
 
 The `.cu` sources (the kernels, the host-side PNG unfilter of
-`io/png.py`, and the conditional WHILE node of `graphs.iterate`) are
-compiled at first use with `nvcc` for `sm_90a` into
+`io/png.py`, and the conditional nodes of `graphs.iterate` and
+`graphs.cond`) are compiled at first use with `nvcc` for `sm_90a` into
 one shared library with a plain C interface, loaded with `ctypes`. The
 library lands in `pose_estimation_tpu_torch/build/` (git-ignored) under a
 name that carries the hash of the sources, the shared header and the
@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
            "moment_maps.cu", "stream_probe.cu", "small_linalg.cu", "png_unfilter.cu",
-           "graph_while.cu")
+           "graph_cond.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
@@ -108,6 +108,10 @@ def library() -> ctypes.CDLL:
     lib.graph_while_begin.restype = i
     lib.graph_while_end.argtypes = [p, ctypes.c_ulonglong, p]
     lib.graph_while_end.restype = i
+    lib.graph_if_begin.argtypes = lib.graph_while_begin.argtypes
+    lib.graph_if_begin.restype = i
+    lib.graph_if_end.argtypes = [p]
+    lib.graph_if_end.restype = i
     return lib
 
 

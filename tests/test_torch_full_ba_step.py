@@ -3,7 +3,9 @@
 Both packages run `ok_step` with `full_ba_keyframes=True` on the kernel
 path (the JAX sampler in interpret mode), as `test_torch_vio.py` does,
 whose tolerances this file uses: keyframes at 3 cm so that every other
-frame refines landmarks, and the motion BA capped at 4 LM iterations.
+frame refines landmarks, and the motion BA capped at 4 LM iterations. Full
+BA is a `graphs.cond` on the keyframe flag: its select and the host form of
+its IF node are held to each other and to the JAX step.
 """
 
 import dataclasses
@@ -94,3 +96,52 @@ def test_ok_step_with_full_ba_matches_jax():
                                  ransac_u=u)
             refined += not torch.equal(pm["rec_p"], m["rec_p"])
     assert refined >= 1
+
+
+@pytest.mark.parametrize("frame", range(1, N_FRAMES))
+def test_full_ba_conditional_forms_match(frame):
+    """Keyframe full BA as `graphs.cond` (an IF node in a CUDA graph
+    around the solve's WHILE node): the port's `ok_step` from the converted
+    JAX state with the select and in the host form of the nodes
+    (`graphs.host_conditionals`) gives the same state and metrics bit for
+    bit and logs the same LM iterations, full BA's 0 on a frame that is not
+    a keyframe; the host form holds to the JAX step at
+    `test_ok_step_with_full_ba_matches_jax`'s tolerances. Frames 1-3 hold
+    keyframes and frames that are not."""
+    from pose_estimation_tpu_torch import graphs
+    from pose_estimation_tpu_torch.utils.tree import tree_leaves
+
+    states, metrics, us, (frames, gyrs, accs, mask) = _jax_chain()
+    _, consts, static = torch_setup(**CFG)
+    args = (_t(frames[frame][0]), _t(frames[frame][1]), _t(gyrs[frame]), _t(accs[frame]),
+            _t(mask), None, consts, static)
+    runs = []
+    for host in (False, True):
+        graphs.iteration_log = []
+        try:
+            if host:
+                with graphs.host_conditionals():
+                    out = tvio.ok_step(convert.state_from_numpy(states[frame], "cpu"), *args,
+                                       ransac_u=tuple(_t(x) for x in us[frame]))
+            else:
+                out = tvio.ok_step(convert.state_from_numpy(states[frame], "cpu"), *args,
+                                   ransac_u=tuple(_t(x) for x in us[frame]))
+            runs.append((out, graphs.read_iterations(graphs.iteration_log)))
+        finally:
+            graphs.iteration_log = None
+    (sel, sel_log), (host, host_log) = runs
+    for a, b in zip(tree_leaves(sel), tree_leaves(host), strict=True):
+        assert torch.equal(a, b)
+    _, m = host
+    jm = metrics[frame]
+    kf = bool(jm["is_keyframe"]) and int(jm["n_tracked"]) > 0
+    assert [name for name, _, _ in host_log] == ["ba", "full_ba"]
+    assert sel_log == host_log
+    assert host_log[0][1] == int(jm["ba_iters"])
+    assert (host_log[1][1] > 0) == kf
+    for k in ("ba_iters", "is_keyframe", "pool_size"):
+        assert int(m[k]) == int(jm[k]), k
+    assert np.abs(m["rec_p"].numpy() - jm["rec_p"]).max() <= 1e-3
+    assert _rot_err(m["rec_R"].numpy(), jm["rec_R"]) <= 1e-3
+    kinds = {bool(metrics[i]["is_keyframe"]) for i in range(1, N_FRAMES)}
+    assert kinds == {True, False}

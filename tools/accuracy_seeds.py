@@ -83,7 +83,9 @@ def main() -> None:
     passes = {}
     if opts.workers > 1:
         pool = multiprocessing.get_context("spawn").Pool(opts.workers)
-        results = pool.imap(run_one, jobs)
+        # each run's line as soon as it ends, so that a run cut short keeps
+        # every finished one
+        results = pool.imap_unordered(run_one, jobs)
     else:
         pool, results = None, map(run_one, jobs)
     for r in results:
