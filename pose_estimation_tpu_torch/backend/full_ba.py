@@ -208,7 +208,7 @@ def full_ba(win: WindowState, obs: LandmarkObs, calib: Calib, gravity,
     from pose_estimation_tpu_torch import graphs
 
     x_pose, x_lm, _, _, _, cost, _, _, it, _ = graphs.iterate(body, start, max_iterations,
-                                                              lambda s: ~s[-1])
+                                                              lambda s: ~s[-1], "full_ba")
     graphs.log_iterations("full_ba", it, max_iterations)
     info = {"initial_cost": cost0, "final_cost": cost, "iterations": it}
     return (x_pose[:np6].reshape(wsize, 6), x_pose[np6:].reshape(wsize, 9), x_lm, info)

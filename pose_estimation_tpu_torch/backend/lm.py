@@ -113,7 +113,7 @@ def _iterate(body, start: _Carry, iterations: int, name: str) -> _Carry:
     # imported here: graphs imports the models, which import this module
     from pose_estimation_tpu_torch import graphs
 
-    s = graphs.iterate(body, start, iterations, lambda c: ~c.done)
+    s = graphs.iterate(body, start, iterations, lambda c: ~c.done, name)
     graphs.log_iterations(name, s.it, iterations)
     return s
 

@@ -72,7 +72,15 @@ fixed loop's frozen iterations and the branches that the select drops, so
 a replay equals the eager run bit for bit; the eager path
 (`graphed=False`) and the CPU keep the fixed loop and the select as the
 yardstick. A step's `stats` count the nodes of its top-level graph and,
-apart, those inside its WHILE and its IF bodies.
+apart, those inside its WHILE and its IF bodies; with tracing on
+(`profiling.enable`) the span stamps that a capture records are counted
+apart again (`stamp_nodes`), so the other counts are the program's own.
+
+Spans (`profiling.span`): each capture is a host span `graphs.capture`;
+each step's graph is a device span `graph.<name>` from its first node to
+its last, each LM iteration `lm.<solve>` and each conditional branch
+`cond.<site>`, inside the WHILE and IF bodies too. The warm-up and the
+eager first call of a solve record no device span.
 
 On the CPU, which the tests use, the same plumbing runs without capture:
 each call runs the function on the static buffers and copies its outputs
@@ -96,6 +104,7 @@ import traceback
 
 import torch
 
+from pose_estimation_tpu_torch import profiling
 from pose_estimation_tpu_torch.imu import preintegration as pre
 from pose_estimation_tpu_torch.models import vio as vio_mod
 from pose_estimation_tpu_torch.ops import fast, kernels, moments, sample, small_linalg
@@ -211,10 +220,11 @@ def _selecting(step) -> bool:
             or (step is None and not _host_conditionals))
 
 
-def iterate(body, carry, iterations: int, live):
+def iterate(body, carry, iterations: int, live, name: str = "lm"):
     """`carry = body(carry)`, `iterations` times: an LM solve's loop, whose
     body leaves the carry unchanged once `live(carry)` (a bool scalar
     tensor) is false, so that an iteration past convergence is a no-op.
+    Each iteration run is the device span `lm.<name>`.
 
     In a capture of a `CapturedStep` the loop is one conditional WHILE node
     (`csrc/graph_cond.cu`) whose body, one iteration, is captured once:
@@ -230,18 +240,21 @@ def iterate(body, carry, iterations: int, live):
     lane), the fixed loop runs; inside `host_conditionals` the host tests
     the flag and stops."""
     step = _capturing
+    span = f"lm.{name}"
     if iterations <= 0 or _selecting(step):
         for _ in range(iterations):
-            carry = body(carry)
+            with profiling.span(span):
+                carry = body(carry)
         return carry
     carry = tree_map(torch.clone, carry)
     flag = live(carry)
     count = torch.zeros((), dtype=torch.int32, device=flag.device)
 
     def run():
-        commit(carry, body(carry), ())
-        count.add_(1)
-        torch.logical_and(live(carry), count < iterations, out=flag)
+        with profiling.span(span):
+            commit(carry, body(carry), ())
+            count.add_(1)
+            torch.logical_and(live(carry), count < iterations, out=flag)
 
     if step is None:
         while bool(flag):
@@ -251,7 +264,7 @@ def iterate(body, carry, iterations: int, live):
     return carry
 
 
-def cond(pred, branch, otherwise, solves=()):
+def cond(pred, branch, otherwise, solves=(), name: str = "branch"):
     """`branch()` where the bool scalar tensor `pred` holds, else
     `otherwise`: the JAX package's `lax.cond` for a branch whose other side
     returns the carry as it is, or constants. `branch()` returns a tree of
@@ -259,7 +272,8 @@ def cond(pred, branch, otherwise, solves=()):
     returns unchanged (the same tensor object as `otherwise`'s) is not
     written. `solves` are the (name, cap) of the LM solves the branch runs,
     in the order they log (`log_iterations`): a solve of a branch not
-    taken logs 0 iterations, in every form, as JAX's `skip_ba` does.
+    taken logs 0 iterations, in every form, as JAX's `skip_ba` does. The
+    branch, where it runs, is the device span `cond.<name>`.
 
     In a capture of a `CapturedStep` the branch is one conditional IF node
     (`csrc/graph_cond.cu`) whose body is the branch, captured once: the
@@ -278,10 +292,11 @@ def cond(pred, branch, otherwise, solves=()):
         log = (iteration_log if step is None
                and torch._C._functorch.peek_interpreter_stack() is None else None)
         mark = len(log) if log is not None else 0
-        out = branch()
+        with profiling.span(f"cond.{name}"):
+            out = branch()
         if log is not None:
             _check_solves(log[mark:], solves)
-            log[mark:] = [(name, torch.where(pred, it, 0), cap) for name, it, cap in log[mark:]]
+            log[mark:] = [(n, torch.where(pred, it, 0), cap) for n, it, cap in log[mark:]]
         return vio_mod.select(pred, out, otherwise)
     if pred.dtype != torch.bool or pred.dim() != 0:
         raise ValueError("cond: the predicate is a bool scalar tensor")
@@ -289,34 +304,35 @@ def cond(pred, branch, otherwise, solves=()):
     log = step.iterations if step is not None else iteration_log
     if step is None and not bool(pred):
         if log is not None:
-            log.extend((name, counts[k], cap) for k, (name, cap) in enumerate(solves))
+            log.extend((n, counts[k], cap) for k, (n, cap) in enumerate(solves))
         return otherwise
     buffers = snapshot(otherwise)
     changed = []
 
     def run():
-        mark = len(log) if log is not None else 0
-        new = branch()
-        if log is not None:
-            _check_solves(log[mark:], solves)
-            for k, (_, it, _) in enumerate(log[mark:]):
-                counts[k].copy_(it)
-            del log[mark:]
-        dst, src, old = tree_leaves(buffers), tree_leaves(new), tree_leaves(otherwise)
-        if len(src) != len(old) or any(s.shape != o.shape or s.dtype != o.dtype
-                                       for s, o in zip(src, old)):
-            raise ValueError("cond: the branch's leaves differ from the untaken side's")
-        changed[:] = [s is not o for s, o in zip(src, old)]
-        for d, s, c in zip(dst, src, changed):
-            if c:
-                d.copy_(s)
+        with profiling.span(f"cond.{name}"):
+            mark = len(log) if log is not None else 0
+            new = branch()
+            if log is not None:
+                _check_solves(log[mark:], solves)
+                for k, (_, it, _) in enumerate(log[mark:]):
+                    counts[k].copy_(it)
+                del log[mark:]
+            dst, src, old = tree_leaves(buffers), tree_leaves(new), tree_leaves(otherwise)
+            if len(src) != len(old) or any(s.shape != o.shape or s.dtype != o.dtype
+                                           for s, o in zip(src, old)):
+                raise ValueError("cond: the branch's leaves differ from the untaken side's")
+            changed[:] = [s is not o for s, o in zip(src, old)]
+            for d, s, c in zip(dst, src, changed):
+                if c:
+                    d.copy_(s)
 
     if step is None:
         run()
     else:
         _conditional(step, "if", pred, run)
     if log is not None:
-        log.extend((name, counts[k], cap) for k, (name, cap) in enumerate(solves))
+        log.extend((n, counts[k], cap) for k, (n, cap) in enumerate(solves))
     # the leaves the branch left alone are the untaken side's own tensors
     leaves = [d if c else o for d, o, c in zip(tree_leaves(buffers), tree_leaves(otherwise),
                                                 changed)]
@@ -342,7 +358,8 @@ def _conditional(step, kind: str, flag, run) -> None:
     the body's end). The body is captured on the body stream of its depth,
     its tensors from the step's body pool of that depth. It may not launch
     a hand kernel: their launch counters assume that every recorded launch
-    replays."""
+    replays. The span stamps captured in the body itself (not in a body
+    nested in it) are counted apart from its nodes."""
     lib, dev = kernels.library(), flag.device
     depth = step.depth
     if depth >= _DEPTHS:
@@ -351,12 +368,13 @@ def _conditional(step, kind: str, flag, run) -> None:
     begin = lib.graph_while_begin if kind == "while" else lib.graph_if_begin
     handle, graph = ctypes.c_ulonglong(0), ctypes.c_void_p(0)
     before = kernel_counts()
+    stamps, nested = profiling.stamp_count(), step.body_stamps
     kernels.check(begin(torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream,
                         flag.data_ptr(), ctypes.byref(handle), ctypes.byref(graph)),
                   f"graph_{kind}_begin")
     step.depth += 1
     try:
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.body():
             torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
             try:
                 run()
@@ -367,8 +385,10 @@ def _conditional(step, kind: str, flag, run) -> None:
         err = (lib.graph_while_end(side.cuda_stream, handle, flag.data_ptr())
                if kind == "while" else lib.graph_if_end(side.cuda_stream))
     kernels.check(err, f"graph_{kind}_end")
+    own = profiling.stamp_count() - stamps - (step.body_stamps - nested)
+    step.body_stamps += own
     step.stats_of[kind] += 1
-    step.stats_of[kind + "_body"] += _nodes(graph.value)
+    step.stats_of[kind + "_body"] += _nodes(graph.value) - own
     if kernel_counts() != before:
         raise RuntimeError("a hand kernel launched inside a conditional body: its launch "
                            "counter would count replays that skip it")
@@ -452,7 +472,10 @@ class CapturedStep:
     at the first call and replayed at every call; on the CPU called each
     time. `args` are trees of static tensors that the caller owns and
     writes between calls; the outputs are static as well (`out`). The
-    caller warms `fn` up before the first call (`warm_up`)."""
+    caller warms `fn` up before the first call (`warm_up`). The call runs
+    as the device span `graph.<name>`; a graph captured with tracing on
+    holds its stamps (`stamped`) and hands each replay its ordinal
+    (`profiling.replayed`)."""
 
     def __init__(self, name: str, fn, args, device, pool=None):
         self.name, self.fn, self.args = name, fn, args
@@ -461,24 +484,27 @@ class CapturedStep:
         self.graph = None
         self.out = None
         self.replays = 0
+        self.stamped = False
         # kernel launches held by the graph, and the capture's costs
         self.launches: dict = {}
         self.stats: dict = {}
         # the graph's conditional nodes by kind and the nodes of their
         # bodies, the memory pools of the bodies' own tensors (one for each
         # depth of nesting), the depth the capture is at, and its LM solves'
-        # (name, iteration count buffer, cap)
+        # (name, iteration count buffer, cap); the span stamps in the bodies
         self.stats_of = dict.fromkeys(("while", "while_body", "if", "if_body"), 0)
         self.body_pools: list = []
         self.depth = 0
         self.iterations: list = []
+        self.body_stamps = 0
 
     def _capture(self):
         global _capturing
         before = kernel_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.stats_of = dict.fromkeys(self.stats_of, 0)
-        self.depth, self.iterations = 0, []
+        self.depth, self.iterations, self.body_stamps = 0, [], 0
+        stamps = profiling.stamp_count()
         while len(self.body_pools) < _DEPTHS:
             self.body_pools.append(torch.cuda.graph_pool_handle())
         for depth in range(_DEPTHS):
@@ -494,7 +520,8 @@ class CapturedStep:
                 torch.cuda.set_sync_debug_mode("error")
                 _capturing = self
                 try:
-                    out = self.fn(*self.args)
+                    with profiling.span(f"graph.{self.name}", root=True):
+                        out = self.fn(*self.args)
                 finally:
                     _capturing = None
                     torch.cuda.set_sync_debug_mode(mode)
@@ -508,6 +535,8 @@ class CapturedStep:
         graph.instantiate()
         t2 = time.perf_counter()
         self.graph, self.out = graph, out
+        stamps = profiling.stamp_count() - stamps
+        self.stamped = stamps > 0
         self.launches = {k: n - before.get(k, 0) for k, n in kernel_counts().items()
                          if n != before.get(k, 0)}
         for k, n in self.launches.items():
@@ -515,16 +544,20 @@ class CapturedStep:
         # the pool's size after this capture (a runner's pool is shared by
         # its graphs)
         self.stats = {"capture_s": t1 - t0, "instantiate_s": t2 - t1,
-                      "nodes": graph_nodes(graph), "while_nodes": self.stats_of["while"],
+                      "nodes": graph_nodes(graph) - (stamps - self.body_stamps),
+                      "while_nodes": self.stats_of["while"],
                       "while_body_nodes": self.stats_of["while_body"],
                       "if_nodes": self.stats_of["if"], "if_body_nodes": self.stats_of["if_body"],
-                      "pool_bytes": pool_bytes(graph.pool())}
+                      "stamp_nodes": stamps, "pool_bytes": pool_bytes(graph.pool())}
 
     def __call__(self):
         if self.device.type == "cuda":
             if self.graph is None:
-                self._capture()
+                with profiling.span("graphs.capture", host=True):
+                    self._capture()
             self.graph.replay()
+            if self.stamped:
+                profiling.replayed()
             for k, n in self.launches.items():
                 replayed[k] = replayed.get(k, 0) + n
             if iteration_log is not None and self.iterations:
@@ -533,7 +566,8 @@ class CapturedStep:
                 iteration_log.extend((name, counts[i], cap)
                                      for i, (name, _, cap) in enumerate(self.iterations))
         else:
-            out = self.fn(*self.args)
+            with profiling.span(f"graph.{self.name}", root=True):
+                out = self.fn(*self.args)
             if self.out is None:
                 self.out = tree_map(torch.clone, out)
             else:
@@ -546,13 +580,13 @@ def warm_up(fn, args, device) -> None:
     """Run `fn` once on clones of `args` on a side stream, so that nothing
     the capture needs is left uninitialised (the kernel library, cuBLAS
     and cuSOLVER handles, the cached launch tables) and no live buffer
-    changes; its LM solves are not logged."""
+    changes; its LM solves are not logged, its spans not recorded."""
     global iteration_log
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     log, iteration_log = iteration_log, None
     try:
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.hold():
             fn(*tree_map(torch.clone, args))
     finally:
         iteration_log = log
@@ -590,6 +624,8 @@ class _Graphs:
         """Copy `value` into the static input `name`; a new shape or type
         makes a new buffer and drops the captured steps (they re-capture)."""
         buf = self._inputs.get(name)
+        if value is buf:
+            return buf
         if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
             if buf is not None:
                 self.steps.clear()
@@ -628,7 +664,9 @@ class FrameGraphs(_Graphs):
     takes the frame's inputs (device or host tensors), copies them into
     the static inputs and replays; the state advances in `self.state`."""
 
-    def _frame_inputs(self, img_l, img_r, gyr, acc, mask, ransac_u):
+    def frame_inputs(self, img_l, img_r, gyr, acc, mask, ransac_u) -> tuple:
+        """Copy a frame's inputs into the static inputs: the buffers, which
+        `ok_step` and `staged_step` then take as they are."""
         return (self._put("img_l", img_l), self._put("img_r", img_r),
                 self._put("gyr", gyr), self._put("acc", acc), self._put("mask", mask),
                 (self._put("u_stereo", ransac_u[0]), self._put("u_temporal", ransac_u[1])))
@@ -646,7 +684,7 @@ class FrameGraphs(_Graphs):
         """One fused OK frame (`models.vio.ok_step` with the uniforms
         given), one graph: the static metrics."""
         return self._run("fused", self._fused,
-                         *self._frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
+                         *self.frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
 
     def _staged(self, ex, state, img_l, img_r, gyr, acc, mask, u):
         c, s = self.consts, self.static
@@ -678,7 +716,7 @@ class FrameGraphs(_Graphs):
         `stage_ba`, `stage_pool`), each its own graph: the static metrics
         (`models.vio.frame_outputs`)."""
         return self._run("staged", self._staged,
-                         *self._frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
+                         *self.frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u))
 
     def _integrate(self, ex, state, gyr, acc, mask):
         imu = self.consts.imu
@@ -734,13 +772,18 @@ class BatchedGraphs(_Graphs):
         return ex.captured("batch", lambda st, *a: commit(st, *self._step(st, *a)),
                            (state, *inputs))
 
+    def inputs(self, imgs_l, imgs_r, gyr, acc, mask, u_b) -> tuple:
+        """Copy a batched frame's inputs into the static inputs: the
+        buffers, which `step` then takes as they are."""
+        return (self._put("imgs_l", imgs_l), self._put("imgs_r", imgs_r),
+                self._put("gyr", gyr), self._put("acc", acc), self._put("mask", mask),
+                self._put("u", u_b))
+
     def step(self, imgs_l, imgs_r, gyr, acc, mask, u_b) -> dict:
         """One batched frame (`parallel.batched.make_batched_step`'s step):
         the static metrics [B, ...]."""
-        return self._run("batched", self._batched, self._put("imgs_l", imgs_l),
-                         self._put("imgs_r", imgs_r), self._put("gyr", gyr),
-                         self._put("acc", acc), self._put("mask", mask),
-                         self._put("u", u_b))
+        return self._run("batched", self._batched,
+                         *self.inputs(imgs_l, imgs_r, gyr, acc, mask, u_b))
 
 
 class SolveGraphs:
@@ -774,7 +817,8 @@ class SolveGraphs:
         key = self.key(name, args)
         n = self.calls[key] = self.calls.get(key, 0) + 1
         if n == 1:
-            return fn(*args)
+            with profiling.hold():
+                return fn(*args)
         step = self.steps.get(key)
         if step is None:
             static = tree_map(lambda t: t.to(self.device, copy=True), args)

@@ -14,10 +14,11 @@ marginalization and the pool update run on keyframes only, the window's
 re-predict off them. In a captured graph each is a conditional IF node
 that skips the branch not taken; eagerly and under `vmap` both sides run
 and `torch.where` selects per sequence, as `lax.cond` does under `vmap`.
-No host read is inside the step. So the step after ORB extraction
-(`track_step`) maps over a batch of sequences with `torch.func.vmap`
-(`parallel/batched.py`), while ORB runs once for the whole batch
-(`extract_rectified_batch`). The front end follows the JAX package's
+The stages are the device spans `ok_step.imu`, `.extract`, `.match`,
+`.backend` and `.pool` (`profiling.span`). No host read is inside the step.
+So the step after ORB extraction (`track_step`) maps over a batch of
+sequences with `torch.func.vmap` (`parallel/batched.py`), while ORB runs
+once for the whole batch (`extract_rectified_batch`). The front end follows the JAX package's
 kernel path unless the configuration asks for the map path
 (`sample_backend="xla"`) or the plain detection (`fast_backend="xla"`); on
 a CUDA device it launches the CUDA kernels, on a CPU device their torch
@@ -32,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pose_estimation_tpu_torch import profiling
 from pose_estimation_tpu_torch.backend import ba as ba_mod
 from pose_estimation_tpu_torch.backend import full_ba as full_ba_mod
 from pose_estimation_tpu_torch.backend.ba import Calib, LandmarkObs
@@ -42,12 +44,6 @@ from pose_estimation_tpu_torch.models import window as win_mod
 from pose_estimation_tpu_torch.ops import matching, orb, pnp, ransac, remap, triangulate
 from pose_estimation_tpu_torch.utils import lie
 from pose_estimation_tpu_torch.utils.precision import apply_policy
-
-# Named spans of the frame's stages (imu, extract, match, backend, pool):
-# `torch.profiler` attributes host and device time to them
-# (tools/profile_torch_step.py); outside a profiler they record nothing.
-_span = torch.profiler.record_function
-
 
 class VIOConstants(NamedTuple):
     """Device-resident constants of the pipeline."""
@@ -242,7 +238,7 @@ def match_features(feats_l, feats_r, pool, ransac_u, static: VIOStatic, shard=No
     """Stereo match -> temporal track of one sequence's extracted features.
     `ransac_u` is the pair of [64, 8] RANSAC uniforms (stereo, temporal);
     `shard` splits the pool's Hamming tables over a model group."""
-    with _span("ok_step.match"):
+    with profiling.span("ok_step.match"):
         cur = tracker.internal_match(
             feats_l, feats_r, ransac_u[0], static.cur_capacity,
             static.match_ratio, static.min_match_dist, static.max_vertical_dist,
@@ -255,7 +251,7 @@ def match_features(feats_l, feats_r, pool, ransac_u, static: VIOStatic, shard=No
 
 def front_end(img_l, img_r, pool, ransac_u, consts: VIOConstants, static: VIOStatic):
     """rectify -> ORB -> stereo match -> temporal track."""
-    with _span("ok_step.extract"):
+    with profiling.span("ok_step.extract"):
         feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
     return match_features(feats_l, feats_r, pool, ransac_u, static)
 
@@ -310,8 +306,12 @@ class BackendCarry(NamedTuple):
 
 
 def psd_clip(schur):
-    """`ba_mod.psd_clip` of a `BackendCarry.schur` (an empty one passes)."""
-    return schur if schur.numel() == 0 else ba_mod.psd_clip(schur)
+    """`ba_mod.psd_clip` of a `BackendCarry.schur` (an empty one passes),
+    inside the backend's span."""
+    if schur.numel() == 0:
+        return schur
+    with profiling.span("ok_step.backend"):
+        return ba_mod.psd_clip(schur)
 
 
 def pool_update(state: VIOState, cur, tr, consts: VIOConstants,
@@ -342,7 +342,7 @@ def stage_imu(state: VIOState, gyr, acc, imu_mask, consts: VIOConstants,
     finalized, and its constraint pushed onto the window with the predicted
     newest state. Returns (state, the constraint's dt)."""
     win, pool = state.win, state.pool
-    with _span("ok_step.imu"):
+    with profiling.span("ok_step.imu"):
         pool = pool_mod.shift_window(pool, win.is_keyframe)
         preint = pre.integrate_chunk(state.preint, gyr, acc, imu_mask, state.bg,
                                      state.ba, consts.imu)
@@ -366,17 +366,18 @@ def stage_frontend(state: VIOState, img_l, img_r, ransac_u, consts: VIOConstants
                    static: VIOStatic):
     """ORB extraction of the stereo pair (K1 or K3, then K2 on the kernel
     path), then `stage_match`. Returns (state, current features, track)."""
-    with _span("ok_step.extract"):
+    with profiling.span("ok_step.extract"):
         feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
     return stage_match(state, feats_l, feats_r, ransac_u, static)
 
 
-def _cond(pred, branch, otherwise, solves=()):
-    """`graphs.cond`: an IF node in a captured graph, else the select."""
+def _cond(name, pred, branch, otherwise, solves=()):
+    """`graphs.cond` at the site `name`: an IF node in a captured graph, else
+    the select."""
     # imported here: graphs imports this module
     from pose_estimation_tpu_torch import graphs
 
-    return graphs.cond(pred, branch, otherwise, solves)
+    return graphs.cond(pred, branch, otherwise, solves, name=name)
 
 
 def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
@@ -389,7 +390,7 @@ def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
     is the identity, which the clip passes with no round). The keyframe
     decision stays the motion-only solve's; the marginalization takes the
     motion-only information at the state after full BA."""
-    with _span("ok_step.backend"):
+    with profiling.span("ok_step.backend"):
         win = state.win
         wsize = win.R.shape[0] - 1
         dtype, dev = win.R.dtype, win.R.device
@@ -414,7 +415,7 @@ def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
                     info["marg_h"] if static.marg_prior else no_h)
 
         win, ba_cost, ba_iters, marg_h = _cond(
-            has_matches, do_ba,
+            "ba", has_matches, do_ba,
             (win, torch.zeros((), dtype=dtype, device=dev),
              torch.zeros((), dtype=torch.int32, device=dev), no_h),
             solves=(("ba", static.max_iterations),))
@@ -425,14 +426,15 @@ def stage_ba_solve(state: VIOState, tr_n_matches, consts: VIOConstants,
                 full_win, full_pool = keyframe_full_ba(win, pool, consts, static)
                 return full_win, full_pool.pos
 
-            win, pos = _cond(kf, do_full, (win, pool.pos),
+            win, pos = _cond("full_ba", kf, do_full, (win, pool.pos),
                              solves=(("full_ba", static.full_ba_iterations),))
             pool = pool._replace(pos=pos)
         do_marg = torch.zeros_like(kf)
         schur = torch.zeros((0, 0), dtype=dtype, device=dev)
         if static.marg_prior:
             do_marg = kf & (win.n_act >= wsize)
-            schur = _cond(do_marg, lambda: ba_mod.marg_schur(marg_h, wsize, static.marg_forget),
+            schur = _cond("marg_schur", do_marg,
+                          lambda: ba_mod.marg_schur(marg_h, wsize, static.marg_forget),
                           torch.eye(15 * (wsize - 1), dtype=dtype, device=dev))
         return BackendCarry(state._replace(win=win, pool=pool), ba_cost, ba_iters, kf,
                             do_marg, schur)
@@ -445,11 +447,12 @@ def stage_ba_finish(carry: BackendCarry, schur_psd, static: VIOStatic):
     preintegrator's reset on a keyframe (a select: 21 operations, cheaper
     than an IF node's body on the keyframes that take it). Returns (state,
     ba_cost, ba_iters)."""
-    with _span("ok_step.backend"):
+    with profiling.span("ok_step.backend"):
         state, kf = carry.state, carry.kf
         win = state.win
         if static.marg_prior:
-            win = _cond(carry.do_marg, lambda: ba_mod.marg_apply(win, schur_psd), win)
+            win = _cond("marg_apply", carry.do_marg, lambda: ba_mod.marg_apply(win, schur_psd),
+                        win)
         new_bg = torch.where(kf, win.ics.bg_i[-1] + win.dbg[-1], state.bg)
         new_ba = torch.where(kf, win.ics.ba_i[-1] + win.dba[-1], state.ba)
         preint = select(kf, pre.init_state(win.R.device), state.preint)
@@ -468,10 +471,10 @@ def stage_pool(state: VIOState, cur, tr, tr_n_matches, consts: VIOConstants,
                static: VIOStatic) -> VIOState:
     """The pool update (a `graphs.cond`), on a keyframe with matches or
     while the pool is empty."""
-    with _span("ok_step.pool"):
+    with profiling.span("ok_step.pool"):
         kf = state.win.is_keyframe & (tr_n_matches > 0)
         do_pool = kf | ~torch.any(state.pool.valid)
-        pool = _cond(do_pool, lambda: pool_update(state, cur, tr, consts, static).pool,
+        pool = _cond("pool", do_pool, lambda: pool_update(state, cur, tr, consts, static).pool,
                      state.pool)
         return state._replace(pool=pool)
 
@@ -560,7 +563,7 @@ def track_step(state: VIOState, feats_l, feats_r, gyr, acc, imu_mask, ransac_u,
 def ok_head(state: VIOState, img_l, img_r, gyr, acc, imu_mask, ransac_u,
             consts: VIOConstants, static: VIOStatic) -> TrackCarry:
     """`ok_step` up to the PSD clip: ORB extraction, then `track_head`."""
-    with _span("ok_step.extract"):
+    with profiling.span("ok_step.extract"):
         feats_l, feats_r = extract_rectified(img_l, img_r, consts, static)
     return track_head(state, feats_l, feats_r, gyr, acc, imu_mask, ransac_u, consts, static)
 

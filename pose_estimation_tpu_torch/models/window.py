@@ -144,7 +144,7 @@ def push_constraint(win: WindowState, ic_new: ImuConstraint, gravity) -> WindowS
     R_j, v_j, p_j = graphs.cond(~kf, lambda: pre.predict(
         win.R[-2], win.v[-2], win.p[-2], ic_new, gravity,
         dbg_i=win.dbg[-2], dba_i=win.dba[-2],
-    ), predicted)
+    ), predicted, name="predict")
     zero3 = torch.zeros_like(win.dbg[-1])
     ics = ImuConstraint(*(
         _roll_set_last(a, n, kf) for a, n in zip(win.ics, ic_new)

@@ -1,14 +1,14 @@
 """Build and load the CUDA kernels of `csrc/`.
 
 The `.cu` sources (the kernels, the host-side PNG unfilter of
-`io/png.py`, and the conditional nodes of `graphs.iterate` and
-`graphs.cond`) are compiled at first use with `nvcc` for `sm_90a` into
-one shared library with a plain C interface, loaded with `ctypes`. The
-library lands in `pose_estimation_tpu_torch/build/` (git-ignored) under a
-name that carries the hash of the sources, the shared header and the
-flags, so an edited source is rebuilt. A failed build raises. Nothing here
-runs at import time, so the CPU-only test environment (no nvcc, no GPU)
-imports every module.
+`io/png.py`, the conditional nodes of `graphs.iterate` and `graphs.cond`,
+and the span stamps of `profiling.py`) are compiled at first use with
+`nvcc` for `sm_90a` into one shared library with a plain C interface,
+loaded with `ctypes`. The library lands in `pose_estimation_tpu_torch/build/`
+(git-ignored) under a name that carries the hash of the sources, the shared
+header and the flags, so an edited source is rebuilt. A failed build
+raises. Nothing here runs at import time, so the CPU-only test environment
+(no nvcc, no GPU) imports every module.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("fast_select.cu", "sample_patches.cu", "fast_score_nms.cu",
            "moment_maps.cu", "stream_probe.cu", "small_linalg.cu", "png_unfilter.cu",
-           "graph_cond.cu")
+           "graph_cond.cu", "span_stamp.cu")
 HEADERS = ("fast_common.cuh",)
 # No --use_fast_math: the kernels rely on IEEE division and square root
 # and on rintf's round-half-to-even, to agree with their torch twins.
@@ -112,6 +112,11 @@ def library() -> ctypes.CDLL:
     lib.graph_if_begin.restype = i
     lib.graph_if_end.argtypes = [p]
     lib.graph_if_end.restype = i
+    lib.span_stamp.argtypes = [p, p, ctypes.c_longlong, i, i]
+    lib.span_stamp.restype = i
+    lib.span_clock.argtypes = [p, p, ctypes.POINTER(ctypes.c_longlong),
+                               ctypes.POINTER(ctypes.c_longlong)]
+    lib.span_clock.restype = i
     return lib
 
 

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from pose_estimation_tpu_torch import profiling
 from pose_estimation_tpu_torch.models import vio as vio_mod
 from pose_estimation_tpu_torch.ops.matching import PoolShard
 from pose_estimation_tpu_torch.utils.tree import tree_map
@@ -118,7 +119,7 @@ def make_batched_step(consts, static, mesh: Mesh | None = None):
                                               static=static))
 
     def step(state_b, imgs_l, imgs_r, gyr, acc, mask, u_b):
-        with torch.profiler.record_function("ok_step.extract"):
+        with profiling.span("ok_step.extract"):
             feats_l, feats_r = vio_mod.extract_rectified_batch(imgs_l, imgs_r, consts, static)
         carry = vhead(state_b, feats_l, feats_r, gyr, acc, mask, u_b)
         return vtail(carry, vio_mod.psd_clip(carry.ba.schur))

@@ -12,6 +12,10 @@ batch continues as sequence i's own state machine would, up to the float32
 rounding of batched against single products (the extraction is equal bit
 for bit; the BA's sums may round apart). The lock-step frames run as
 captured graphs (`graphs.BatchedGraphs`, one graph for the batch size).
+Each lock-step frame is the host span `batch.step` (`profiling.span`),
+carrying the step's id, with the children `batch.uniforms` (the lanes'
+RANSAC draws), `batch.inputs` (the pageable copies of the frames and the
+copies into the graph's static inputs) and `batch.replay`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pose_estimation_tpu_torch import graphs
+from pose_estimation_tpu_torch import graphs, profiling
 from pose_estimation_tpu_torch.models import vio as vio_mod
 from pose_estimation_tpu_torch.parallel import batched
 from pose_estimation_tpu_torch.slam import State, VisualInertialSLAM
@@ -47,6 +51,7 @@ class BatchedReplay:
         self.consts, self.static = self.slams[0].consts, self.slams[0].static
         self.batched_state = None
         self.trajectories: list[list] = [[] for _ in range(n)]
+        self._steps = 0
 
     def bootstrap(self, feed_fns) -> None:
         """feed_fns[i](slam) drives sequence i's state machine until it
@@ -62,20 +67,29 @@ class BatchedReplay:
         dimension N. Returns the batched metrics (device tensors)."""
         if self.batched_state is None:
             raise RuntimeError("call bootstrap() first")
+        frame = self._steps
+        self._steps += 1
+        with profiling.span("batch.step", host=True, frame=frame):
+            return self._step(imgs_l, imgs_r, gyrs, accs, masks, timestamps)
+
+    def _step(self, imgs_l, imgs_r, gyrs, accs, masks, timestamps):
         dev = self.device
 
         def t(a):
             return torch.as_tensor(np.asarray(a)).to(dev)
 
-        u = torch.stack([torch.stack(vio_mod.draw_ransac_uniforms(s._gen, dev))
-                         for s in self.slams])
-        inputs = (t(imgs_l), t(imgs_r), t(gyrs), t(accs), t(masks), u)
+        with profiling.span("batch.uniforms", host=True):
+            u = torch.stack([torch.stack(vio_mod.draw_ransac_uniforms(s._gen, dev))
+                             for s in self.slams])
         if self._graphs is None:
             self._graphs = graphs.BatchedGraphs(self.batched_state, self.consts,
                                                 self.static, dev)
         elif self.batched_state is not self._graphs.state:
             self._graphs.load_state(self.batched_state)
-        metrics = graphs.snapshot(self._graphs.step(*inputs))
+        with profiling.span("batch.inputs", host=True):
+            inputs = self._graphs.inputs(t(imgs_l), t(imgs_r), t(gyrs), t(accs), t(masks), u)
+        with profiling.span("batch.replay", host=True):
+            metrics = graphs.snapshot(self._graphs.step(*inputs))
         self.batched_state = self._graphs.state
         if timestamps is not None:
             p = metrics["rec_p"]

@@ -39,6 +39,16 @@ graphs are held to.
 (`stage_imu`, `stage_frontend`, `stage_ba`, `stage_pool`), each its own
 graph, which a caller can time one by one; the fused frame is the same
 code in one graph.
+Spans (`profiling.span`, recorded with tracing on): each call of `process`
+is the host span `slam.process`, carrying the frame's id (the count of
+earlier calls), with the children `slam.imu` (the IMU queue to the
+device, overflow chunks integrated), `slam.inputs` (the pageable image
+copies, and the copies into the graphs' static inputs), `slam.uniforms`
+(the RANSAC draws), `slam.replay` (a device call: a graph's replay, or an
+eager call), `slam.record` (what the host keeps of the frame) and
+`slam.health` (the health check and what it starts); `slam.wait` marks
+every blocking read of the device. `counters()` gives the calls of
+`process`, the solves' calls, the graphs captured and their replays.
 `set_viewer` attaches a live viewer (`live_viewer.LiveViewer`), fed after
 every OK frame (host reads of the window, and of the pool every
 `viewer_landmark_every` frames). `refresh_kf_hist` (off by default, as in
@@ -55,7 +65,7 @@ import numpy as np
 import torch
 
 from pose_estimation_tpu_torch import checkpoint as ckpt
-from pose_estimation_tpu_torch import graphs
+from pose_estimation_tpu_torch import graphs, profiling
 from pose_estimation_tpu_torch.backend import init_solvers
 from pose_estimation_tpu_torch.camera import CameraModel
 from pose_estimation_tpu_torch.imu import preintegration as pre
@@ -78,6 +88,11 @@ class State(Enum):
 class SensorType(Enum):
     ACCELEROMETER = 0
     GYROSCOPE = 1
+
+
+def _host(name: str, **attrs):
+    """The host span `name` (`profiling.span`)."""
+    return profiling.span(name, host=True, **attrs)
 
 
 def _stack_ics(ics) -> ImuConstraint:
@@ -133,6 +148,8 @@ class VisualInertialSLAM:
         self.reinit_on_bias_corruption = reinit_on_bias_corruption
         self.reinit_check_every = reinit_check_every
         self._frame_count = 0
+        # calls of `process` (the frame id of its spans)
+        self._process_calls = 0
         # tracking loss: persistent low track counts trigger a re-bootstrap
         self.min_tracked = 8
         self.lost_after = 3
@@ -278,6 +295,23 @@ class VisualInertialSLAM:
             g = self._solve_graphs = graphs.SolveGraphs(self.consts, self.static, self.device)
         return g.run(name, fn, *args)
 
+    def counters(self) -> dict:
+        """The device calls so far: `frames`, the calls of `process`;
+        `solve_calls`, each graphed solve's calls by name (the eager first
+        call of each input shape included); `captures`, the graphs captured
+        (the frame graphs' and the solves'); `replays`, each graph's calls
+        by name (the solves' summed over their input shapes)."""
+        steps = list(self._graphs.steps.values()) if self._graphs is not None else []
+        solve_calls, replays = {}, {}
+        if self._solve_graphs is not None:
+            steps += self._solve_graphs.steps.values()
+            for (name, *_), n in self._solve_graphs.calls.items():
+                solve_calls[name] = solve_calls.get(name, 0) + n
+        for step in steps:
+            replays[step.name] = replays.get(step.name, 0) + step.replays
+        return {"frames": self._process_calls, "solve_calls": solve_calls,
+                "captures": sum(step.graph is not None for step in steps), "replays": replays}
+
     def _integrate(self, gyr, acc, mask):
         if self.graphed:
             g = self._frame_graphs()
@@ -309,15 +343,23 @@ class VisualInertialSLAM:
 
     def _seed_ref(self, img_l):
         c, s = self.consts, self.static
-        fl = self._solve("seed_ref", lambda im: vio_mod.extract_rectified(im, im, c, s)[0],
-                         img_l)
+        with _host("slam.replay"):
+            fl = self._solve("seed_ref", lambda im: vio_mod.extract_rectified(im, im, c, s)[0],
+                             img_l)
         return graphs.snapshot(fl)
 
     # ---- per-frame processing (`process`)
 
     def process(self, gray_l: np.ndarray, gray_r: np.ndarray, img_ts: int) -> bool:
-        img_l = torch.as_tensor(np.asarray(gray_l)).to(self.device)
-        img_r = torch.as_tensor(np.asarray(gray_r)).to(self.device)
+        frame = self._process_calls
+        self._process_calls += 1
+        with _host("slam.process", frame=frame):
+            return self._process(gray_l, gray_r, img_ts)
+
+    def _process(self, gray_l, gray_r, img_ts: int) -> bool:
+        with _host("slam.inputs"):
+            img_l = torch.as_tensor(np.asarray(gray_l)).to(self.device)
+            img_r = torch.as_tensor(np.asarray(gray_r)).to(self.device)
 
         if self.state == State.SYNCHRONIZING:
             if self._synchronize(img_ts):
@@ -329,16 +371,20 @@ class VisualInertialSLAM:
 
         if self.state == State.SFM:
             if self._sfm_count < self.cfg.window_size - 1:
-                self._integrate(*self._pop_imu_chunk(img_ts))
+                with _host("slam.imu"):
+                    self._integrate(*self._pop_imu_chunk(img_ts))
                 ref = self._ref_feats
                 c, s = self.consts, self.static
-                u = vio_mod.draw_sfm_uniforms(self._gen, self.device, s.pnp_solver)
-                rvec, tvec, n_inl, feats_l = self._solve(
-                    "sfm_step", lambda *a: vio_mod.sfm_step(*a[:5], a[5:], c, s),
-                    img_l, img_r, ref.desc, ref.xy, ref.valid, *u)
-                r_np = rvec.double().cpu().numpy()
-                t_np = tvec.double().cpu().numpy()
-                n_inl = int(n_inl)
+                with _host("slam.uniforms"):
+                    u = vio_mod.draw_sfm_uniforms(self._gen, self.device, s.pnp_solver)
+                with _host("slam.replay"):
+                    rvec, tvec, n_inl, feats_l = self._solve(
+                        "sfm_step", lambda *a: vio_mod.sfm_step(*a[:5], a[5:], c, s),
+                        img_l, img_r, ref.desc, ref.xy, ref.valid, *u)
+                with _host("slam.wait"):
+                    r_np = rvec.double().cpu().numpy()
+                    t_np = tvec.double().cpu().numpy()
+                    n_inl = int(n_inl)
                 # degenerate-PnP gate
                 if n_inl < self.min_sfm_inliers or np.linalg.norm(t_np) > 5.0:
                     if self.verbose:
@@ -362,45 +408,57 @@ class VisualInertialSLAM:
             return True
 
         if self.state == State.OK:
-            gyr, acc, mask = self._pop_imu_chunk(img_ts)
+            with _host("slam.imu"):
+                gyr, acc, mask = self._pop_imu_chunk(img_ts)
             if self._last_take == 0:    # the final chunk holds no sample
                 if self.verbose:
                     print("[slam] warning: no IMU samples for frame; skipping")
                 return False
-            ransac_u = vio_mod.draw_ransac_uniforms(self._gen, self.device)
+            with _host("slam.uniforms"):
+                ransac_u = vio_mod.draw_ransac_uniforms(self._gen, self.device)
             if self.graphed:
                 g = self._frame_graphs()
                 run = g.staged_step if self.staged else g.ok_step
-                metrics = graphs.snapshot(run(img_l, img_r, gyr, acc, mask, ransac_u))
+                with _host("slam.inputs"):
+                    inputs = g.frame_inputs(img_l, img_r, gyr, acc, mask, ransac_u)
+                with _host("slam.replay"):
+                    out = run(*inputs)
                 self.vio = g.state
             elif self.staged:
-                metrics = self._staged_step(img_l, img_r, gyr, acc, mask, ransac_u)
+                with _host("slam.replay"):
+                    out = self._staged_step(img_l, img_r, gyr, acc, mask, ransac_u)
             else:
-                self.vio, metrics = vio_mod.ok_step(
-                    self.vio, img_l, img_r, gyr, acc, mask, None, self.consts,
-                    self.static, ransac_u=ransac_u)
-            self._record(img_ts, metrics)
-            if self.verbose:
-                print(f"[slam] ts={img_ts} stereo={int(metrics['n_stereo'])} "
-                      f"tracked={int(metrics['n_tracked'])} "
-                      f"kf={bool(metrics['is_keyframe'])} "
-                      f"pool={int(metrics['pool_size'])} "
-                      f"ba_iters={int(metrics['ba_iters'])}")
-            if self._metrics_sink is not None:
-                self._metrics_sink.write(json.dumps({"ts": img_ts, **{
-                    k: (float(v) if v.ndim == 0 else v.tolist())
-                    for k, v in metrics.items() if not k.startswith("rec_")}}) + "\n")
-                self._metrics_sink.flush()
-            self._frame_count += 1
-            if self._viewer is not None:
-                self._push_viewer(metrics)
-            # device scalars wait here and are read in one transfer every
-            # reinit_check_every frames; the streaks still advance per frame
-            snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"], metrics["rec_ic"])
-            self._pending_health.append((
-                metrics["n_tracked"], metrics["need_reinit"], metrics["is_keyframe"], snap))
+                with _host("slam.replay"):
+                    self.vio, out = vio_mod.ok_step(
+                        self.vio, img_l, img_r, gyr, acc, mask, None, self.consts,
+                        self.static, ransac_u=ransac_u)
+            with _host("slam.record"):
+                metrics = graphs.snapshot(out) if self.graphed else out
+                self._record(img_ts, metrics)
+                if self.verbose:
+                    print(f"[slam] ts={img_ts} stereo={int(metrics['n_stereo'])} "
+                          f"tracked={int(metrics['n_tracked'])} "
+                          f"kf={bool(metrics['is_keyframe'])} "
+                          f"pool={int(metrics['pool_size'])} "
+                          f"ba_iters={int(metrics['ba_iters'])}")
+                if self._metrics_sink is not None:
+                    with _host("slam.wait"):
+                        self._metrics_sink.write(json.dumps({"ts": img_ts, **{
+                            k: (float(v) if v.ndim == 0 else v.tolist())
+                            for k, v in metrics.items() if not k.startswith("rec_")}}) + "\n")
+                    self._metrics_sink.flush()
+                self._frame_count += 1
+                if self._viewer is not None:
+                    with _host("slam.wait"):
+                        self._push_viewer(metrics)
+                # device scalars wait here and are read in one transfer every
+                # reinit_check_every frames; the streaks still advance per frame
+                snap = (metrics["rec_R"], metrics["rec_p"], metrics["rec_v"], metrics["rec_ic"])
+                self._pending_health.append((
+                    metrics["n_tracked"], metrics["need_reinit"], metrics["is_keyframe"], snap))
             if self._frame_count % self.reinit_check_every == 0:
-                return self._health_check(img_l, img_r)
+                with _host("slam.health"):
+                    return self._health_check(img_l, img_r)
             return True
 
         return True  # LOST: relocalization is future work, as in the reference
@@ -442,10 +500,11 @@ class VisualInertialSLAM:
 
     def _health_check(self, img_l, img_r) -> bool:
         pending, self._pending_health = self._pending_health, []
-        flags = torch.stack([
-            torch.stack([n.to(torch.int64), r.to(torch.int64), k.to(torch.int64)])
-            for n, r, k, _ in pending
-        ]).cpu().numpy()
+        with _host("slam.wait"):
+            flags = torch.stack([
+                torch.stack([n.to(torch.int64), r.to(torch.int64), k.to(torch.int64)])
+                for n, r, k, _ in pending
+            ]).cpu().numpy()
         lost = False
         corrupted = False
         for (n_tracked, need_reinit, is_kf), (_, _, _, snap) in zip(flags, pending):
@@ -511,8 +570,9 @@ class VisualInertialSLAM:
             self._sfm_R.append(np.eye(3))
             self._sfm_p.append(np.zeros(3))
         t_c1c2_R = lie.so3_exp(torch.as_tensor(r, dtype=torch.float64)).numpy()
-        r_bc = self.consts.r_bc.double().cpu().numpy()
-        p_bc = self.consts.p_bc.double().cpu().numpy()
+        with _host("slam.wait"):
+            r_bc = self.consts.r_bc.double().cpu().numpy()
+            p_bc = self.consts.p_bc.double().cpu().numpy()
         r_cb, p_cb = r_bc.T, -r_bc.T @ p_bc
         R1w, p1w = self._sfm_R[-1], self._sfm_p[-1]
         Ra = R1w @ r_bc
@@ -525,9 +585,10 @@ class VisualInertialSLAM:
         # preintegration, which the next chunk overwrites in the graphs'
         # buffers, and the next replay of `finalize` its outputs
         imu = self.consts.imu
-        self._sfm_ics.append(graphs.snapshot(self._solve(
-            "finalize", lambda p, bg, ba: pre.finalize(p, bg, ba, imu),
-            self.vio.preint, self.vio.bg, self.vio.ba)))
+        with _host("slam.replay"):
+            self._sfm_ics.append(graphs.snapshot(self._solve(
+                "finalize", lambda p, bg, ba: pre.finalize(p, bg, ba, imu),
+                self.vio.preint, self.vio.bg, self.vio.ba)))
 
     def _initialize(self, img_l, img_r, img_ts):
         """The 4-stage initializer, its plausibility gates, the window
@@ -540,13 +601,15 @@ class VisualInertialSLAM:
         unit_g, axes, gravity = self._unit_g, self._axes, self._gravity
         # every output is used (copied by reseed_window, read by the gates)
         # before the next replay of `full_init`
-        R, v, p, dbg, dba, g_est, ics = self._solve(
-            "full_init", lambda *a: init_solvers.full_init(*a, unit_g, axes, gravity),
-            t(self._sfm_R), t(self._sfm_p), _stack_ics(self._sfm_ics))
+        with _host("slam.replay"):
+            R, v, p, dbg, dba, g_est, ics = self._solve(
+                "full_init", lambda *a: init_solvers.full_init(*a, unit_g, axes, gravity),
+                t(self._sfm_R), t(self._sfm_p), _stack_ics(self._sfm_ics))
         new_bg = self.vio.bg + dbg
         new_ba = self.vio.ba + dba
-        g_norm, v_max = torch.stack([
-            torch.linalg.norm(g_est), torch.max(torch.linalg.norm(v, dim=-1))]).tolist()
+        with _host("slam.wait"):
+            g_norm, v_max = torch.stack([
+                torch.linalg.norm(g_est), torch.max(torch.linalg.norm(v, dim=-1))]).tolist()
         gm = self.cfg.gravity_magnitude
         if not (0.5 * gm < g_norm < 2.0 * gm and v_max < self.max_init_velocity
                 and np.isfinite(g_norm)):
@@ -565,9 +628,11 @@ class VisualInertialSLAM:
         u = vio_mod.draw_ransac_uniforms(self._gen, dev)
         # the state stays in the graph's outputs until the next OK frame
         # copies it into the frame graphs' buffers
-        self.vio, n_stereo = self._solve(
-            "bootstrap_frame", lambda st, il, ir, *u: vio_mod.bootstrap_frame(st, il, ir, u, c, s),
-            self.vio, img_l, img_r, *u)
+        with _host("slam.replay"):
+            self.vio, n_stereo = self._solve(
+                "bootstrap_frame",
+                lambda st, il, ir, *u: vio_mod.bootstrap_frame(st, il, ir, u, c, s),
+                self.vio, img_l, img_r, *u)
         self._record(img_ts)
         self.state = State.OK
         if self.verbose:
@@ -620,7 +685,8 @@ class VisualInertialSLAM:
         # the newest entry sits at slot -1 until the next frame shifts the
         # window (then -2)
         off = 1 if self._last_was_kf else 2
-        n_act = int(win.n_act)
+        with _host("slam.wait"):
+            n_act = int(win.n_act)
         for m in range(1, len(self._kf_hist) + 1):
             slot = length - off - (m - 1)
             if slot < max(length - 1 - n_act, 0):
@@ -638,13 +704,15 @@ class VisualInertialSLAM:
         sigma_tilt, sigma_dba = self.refine_sigmas
         # the outputs are read by the gates and _apply_alignment before the
         # next replay
-        g_est, delta_r, dba = self._solve(
-            "refine", lambda *a: init_solvers.refine_gravity(
-                *a, unit_g, axes, gravity, sigma_tilt=sigma_tilt, sigma_dba=sigma_dba),
-            R, p, ics)
-        g_norm, angle, dba_n, ba_after = torch.stack([
-            torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
-            torch.linalg.norm(ba_now + dba)]).tolist()
+        with _host("slam.replay"):
+            g_est, delta_r, dba = self._solve(
+                "refine", lambda *a: init_solvers.refine_gravity(
+                    *a, unit_g, axes, gravity, sigma_tilt=sigma_tilt, sigma_dba=sigma_dba),
+                R, p, ics)
+        with _host("slam.wait"):
+            g_norm, angle, dba_n, ba_after = torch.stack([
+                torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
+                torch.linalg.norm(ba_now + dba)]).tolist()
         self._kfs_since_refine = 0
         gm = self.cfg.gravity_magnitude
         ok = (np.isfinite(g_norm) and np.isfinite(angle) and np.isfinite(dba_n)
@@ -692,13 +760,15 @@ class VisualInertialSLAM:
             return False
         R, p, ics, ba_now = self._history_chain()
         unit_g, axes, gravity = self._unit_g, self._axes, self._gravity
-        g_est, delta_r, dba = self._solve(
-            "recover", lambda *a: init_solvers.refine_gravity(
-                *a, unit_g, axes, gravity, sigma_tilt=5.0, sigma_dba=5.0, rounds=3),
-            R, p, ics)
-        g_norm, angle, dba_n, ba_new, ba_old = torch.stack([
-            torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
-            torch.linalg.norm(ba_now + dba), torch.linalg.norm(ba_now)]).tolist()
+        with _host("slam.replay"):
+            g_est, delta_r, dba = self._solve(
+                "recover", lambda *a: init_solvers.refine_gravity(
+                    *a, unit_g, axes, gravity, sigma_tilt=5.0, sigma_dba=5.0, rounds=3),
+                R, p, ics)
+        with _host("slam.wait"):
+            g_norm, angle, dba_n, ba_new, ba_old = torch.stack([
+                torch.linalg.norm(g_est), torch.linalg.norm(delta_r), torch.linalg.norm(dba),
+                torch.linalg.norm(ba_now + dba), torch.linalg.norm(ba_now)]).tolist()
         gm = self.cfg.gravity_magnitude
         ok = (np.isfinite(g_norm) and np.isfinite(angle) and np.isfinite(dba_n)
               and 0.7 * gm < g_norm < 1.4 * gm
@@ -721,8 +791,9 @@ class VisualInertialSLAM:
         current window."""
         w = self.cfg.window_size
         win = self.vio.win
-        self._sfm_R = list(win.R[1:w + 1].cpu().numpy())
-        self._sfm_p = list(win.p[1:w + 1].cpu().numpy())
+        with _host("slam.wait"):
+            self._sfm_R = list(win.R[1:w + 1].cpu().numpy())
+            self._sfm_p = list(win.p[1:w + 1].cpu().numpy())
         self._sfm_ics = [ImuConstraint(*(a[i] for a in graphs.snapshot(win.ics)))
                          for i in range(1, w)]
         zero3 = torch.zeros(3, device=self.device)

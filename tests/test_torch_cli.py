@@ -2,7 +2,8 @@
 over small simulated datasets written by `testing.write_euroc` and
 `testing.write_kitti` (320x240, 1 s at 10 Hz), the `states.csv` they write
 against the JAX package's `save_results` format, `--live-view` (served
-through the EuRoC CLI, refused without matplotlib), and `profiling`.
+through the EuRoC CLI, refused without matplotlib), and
+`profiling.StageTimers`.
 
 The replays run with `yaml` and `cv2` made unimportable: the port reads
 its configuration and its PNG frames without PyYAML or OpenCV, which the
@@ -168,10 +169,3 @@ def test_stage_timers():
     rep = st.report()
     assert "matmul" in rep and "x2" in rep
     assert "manual" in rep and "tree" in rep
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path)):
-        torch.ones((32, 32)) @ torch.ones((32, 32))
-    trace = (tmp_path / "trace.json").read_text()
-    assert '"traceEvents"' in trace and "aten::" in trace

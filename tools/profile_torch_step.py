@@ -11,7 +11,8 @@ the simulator world of `chip_smoke.py`) from a seeded window, profiles the
 frames after the warm-up with `torch.profiler`, and prints: the wall time
 per frame, the device busy share (summed kernel time over wall time), the
 host and device time of each stage span (`ok_step.imu`, `.extract`,
-`.match`, `.backend`, `.pool`), the kernels with the most device time, the
+`.match`, `.backend`, `.pool`; the program's spans, `profiling.span`, with
+its tracing on), the kernels with the most device time, the
 hand-written kernels by name (K1 `fast_select`, K2 `sample_patches`, K3
 `fast_score_nms`, K4 `moment_maps`), and the state of the profiled frames
 (LM iterations, keyframes, position error), since the LM and keyframe work
@@ -46,12 +47,14 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from pose_estimation_tpu_torch import profiling
     from pose_estimation_tpu_torch.camera import CameraModel
     from pose_estimation_tpu_torch.models import vio
     from pose_estimation_tpu_torch.testing import seeded_state, sim_frames, synthetic_config
     from pose_estimation_tpu_torch.utils.precision import require_cuda
 
     dev = require_cuda()
+    profiling.enable(dev)
     cfg = synthetic_config(width=752, height=480, levels=8, features=800)
     consts, static = vio.build_constants(cfg, CameraModel.from_config(cfg), dev)
     if opts.front == "map":

@@ -15,6 +15,20 @@ its last synchronize. Per call it counts the sessions whose events hold
 no kernel of the name, and for those the device events they did hold (how
 many, their names, and how many events of the kernel's name the
 profiler's raw results held). Prints the card and one JSON line.
+
+    python3 tools/profiler_probe.py --mode conditional [--sessions 5] [--iterations 7]
+
+Whether the profiler sees the kernels of a conditional node's body: a
+captured graph (`graphs.CapturedStep`) of a top-level kernel
+(`torch.flip`), a WHILE node (`graphs.iterate`) whose body runs a scan
+(`cumsum`) and stops after `--iterations` of its cap of 20, and an IF node
+(`graphs.cond`, taken) whose body sorts, profiled over 5 replays a
+session; then the same with the WHILE node inside the IF node's body, as
+the frame graph nests the BA's LM in its branch. `--body-kernels N` adds
+N - 1 `sin` kernels to the WHILE body (the BA's body has 618 nodes). Per kind it counts the
+profiler's device events of the kernels that the same operation launches
+eagerly against those the replays ran, and the iterations the body's
+stamps (`profiling`) saw.
 """
 
 from __future__ import annotations
@@ -36,7 +50,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sessions", type=int, default=30)
     ap.add_argument("--pad-ms", type=float, default=0.0)
+    ap.add_argument("--mode", choices=("launches", "conditional"), default="launches")
+    ap.add_argument("--iterations", type=int, default=7)
+    ap.add_argument("--body-kernels", type=int, default=1)
     opts = ap.parse_args()
+    if opts.mode == "conditional":
+        conditional_probe(opts.sessions, opts.iterations, opts.body_kernels)
+        return
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -98,6 +118,77 @@ def main() -> None:
                           seconds=time.perf_counter() - t0, seen=dict(seen),
                           missed={k: len(v) for k, v in misses.items()},
                           misses=dict(misses))))
+
+
+def conditional_probe(sessions: int, iterations: int, body_kernels: int, cap: int = 20,
+                      replays: int = 5) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose_estimation_tpu_torch import graphs, profiling
+    from pose_estimation_tpu_torch.ops import kernels
+    from pose_estimation_tpu_torch.utils.precision import require_cuda
+
+    dev = require_cuda()
+    kernels.build()
+    profiling.enable(dev)
+    x0 = torch.rand(1 << 16, device=dev)
+    stop = torch.tensor(iterations, dtype=torch.int32, device=dev)
+    def scan(x):
+        x = torch.cumsum(x, 0) * 1e-4
+        for _ in range(body_kernels - 1):
+            x = torch.sin(x)
+        return x
+
+    ops = {"top": lambda x: torch.flip(x, (0,)), "while": scan,
+           "if": lambda x: torch.sort(x).values}
+
+    def loop(y):
+        return graphs.iterate(lambda c: (ops["while"](c[0]), c[1] + 1),
+                              (y, torch.zeros((), dtype=torch.int32, device=dev)), cap,
+                              lambda c: c[1] < stop, name="probe")[0]
+
+    def flat(x, stop):
+        y = loop(ops["top"](x))
+        return graphs.cond(stop > 0, lambda: ops["if"](y), y, name="probe")
+
+    def nested(x, stop):
+        y = ops["top"](x)
+        return graphs.cond(stop > 0, lambda: ops["if"](loop(y)), y, name="probe")
+
+    def device_names(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return collections.Counter(e.name for e in prof.events()
+                                   if e.device_type.name == "CUDA" and not e.is_user_annotation)
+
+    eager = {kind: device_names(lambda op=op: op(x0)) for kind, op in ops.items()}
+    out = {"mode": "conditional", "iterations": iterations, "cap": cap,
+           "body_kernels": body_kernels,
+           "replays_a_session": replays, "eager_kernels": {k: dict(v) for k, v in eager.items()}}
+    for label, fn in (("flat", flat), ("nested", nested)):
+        args = (x0.clone(), stop)
+        graphs.warm_up(fn, args, dev)
+        step = graphs.CapturedStep(label, fn, args, dev, torch.cuda.graph_pool_handle())
+        step()
+        torch.cuda.synchronize()
+        rows = []
+        for _ in range(sessions):
+            profiling.reset()
+            seen = device_names(lambda: [step() for _ in range(replays)])
+            spans = profiling.read()
+            row = {"stamped_iterations": len(spans.named("lm.probe")),
+                   "stamped_if_bodies": len(spans.named("cond.probe"))}
+            for kind, names in eager.items():
+                runs = replays * {"top": 1, "while": iterations, "if": 1}[kind]
+                row[kind] = {"expected": runs * sum(names.values()),
+                             "seen": sum(seen[n] for n in names)}
+            rows.append(row)
+        out[label] = {"graph": step.stats, "sessions": rows}
+    print(torch.cuda.get_device_name(0))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":
