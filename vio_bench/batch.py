@@ -13,6 +13,10 @@ The comparison runs the reference from the start (every lane seeded at
 its true state by the reference itself, through the set-up's steps and
 the window's first `chain`) and from the program's state at `samples`
 window steps drawn from the seed, `chain` steps each.
+
+A traced run keeps the program's own spans over the window
+(`record.program_trace`): cleared when the window starts, read when it
+ends.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from vio_bench.trace import Tracer, span
 def run(ctx) -> Record:
     import torch
 
+    from pose_estimation_tpu_torch import profiling
     from pose_estimation_tpu_torch.models import vio
     from pose_estimation_tpu_torch.parallel import batched
     from pose_estimation_tpu_torch.parallel.batched_slam import BatchedReplay
@@ -78,6 +83,8 @@ def run(ctx) -> Record:
                                        for k in range(s0 + tr["chain"])],
                             batched=True, gen_seeds=[ctx.world_seed + j for j in range(b)])]
     ctx.mark_setup_done()
+    if ctx.trace:
+        profiling.reset()
     t0 = time.perf_counter()
     n, paused = 0, 0.0
     while True:
@@ -107,7 +114,9 @@ def run(ctx) -> Record:
     tracer.stop()
     rec.window_s = td - t0 - paused
     rec.frames = n * b
-    rec.trace = tracer.read() if ctx.trace else None
+    if ctx.trace:
+        rec.program_trace = profiling.read()
+        rec.trace = tracer.read()
     rec.memory_peak_bytes = ctx.memory_peak()
     if br._graphs is not None:
         st = br._graphs.stats().get("batch")

@@ -2,6 +2,7 @@
 """The comparison's two readings for a cell, over many seeds in one process.
 
     python3 vio_bench/control.py --workload <cell> --seeds 1-12 --seconds 6 [--out FILE]
+        [--bench BENCHMARK.json]
 
 For each seed: the cell's set-up and a short window at its own load
 (the run's own drivers), then over the window's sample (as many frames as
@@ -46,6 +47,7 @@ def main(argv=None) -> int:
                     help="the configuration's and traffic's tiny rehearsal sizes")
     ap.add_argument("--device", default=None,
                     help="cuda or cpu (default: cuda; cpu with --rehearse)")
+    ap.add_argument("--bench", default=None, help="another BENCHMARK.json")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -55,9 +57,8 @@ def main(argv=None) -> int:
     import torch
 
     from vio_bench import batch, check, spec, stream
-    from vio_bench.ref.utils.config import load_config as ref_load
 
-    cell = spec.load_cell(args.workload, rehearse=args.rehearse)
+    cell = spec.load_cell(args.workload, rehearse=args.rehearse, bench_path=args.bench)
     device = args.device or ("cpu" if args.rehearse else "cuda")
     if device.startswith("cuda"):
         if not torch.cuda.is_available():
@@ -69,8 +70,7 @@ def main(argv=None) -> int:
         kernels.build()
     torch.set_num_threads(4)
     cfg = spec.program_config(cell, args.rehearse)
-    overrides = (spec.rehearsal_overrides(cell, ref_load(cell.yaml, cell.config["dataset"]))
-                 if args.rehearse else {})
+    overrides = spec.reference_overrides(cell, args.rehearse)
     drivers = {"stream": stream.run, "batch": batch.run}
     lines = []
     for seed in seeds(args.seeds):

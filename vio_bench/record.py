@@ -22,6 +22,7 @@ class Record:
     lm_iters: list | None = None    # the motion-only BA's iterations a frame (traced run)
     graph_nodes: int | None = None
     trace: object = None            # trace.Trace of the traced stretch
+    program_trace: object = None    # the program's spans over the window (traced run)
     eager_in_window: int = 0
     memory_peak_bytes: int = 0
     samples: list = dataclasses.field(default_factory=list)

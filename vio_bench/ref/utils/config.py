@@ -3,8 +3,7 @@
 of the per-dataset OpenCV-YAML files with its own parser of the OpenCV
 FileStorage dialect (`_parse_opencv_yaml`), and the fields of `VIOConfig`
 that the frame step reads (not the SfM bootstrap's, and not the options
-that select a path no cell runs: dense rectification, keyframe full BA,
-the map front end).
+that select a path no cell runs: dense rectification, the map front end).
 """
 
 from __future__ import annotations
@@ -122,6 +121,8 @@ class VIOConfig:
     marg_prior: bool = True
     marg_forget: float = 1.0
     ba_prior_sigma: float = 0.0
+    full_ba_keyframes: bool = False
+    full_ba_iterations: int = 8
 
     @property
     def profile(self) -> DatasetProfile:

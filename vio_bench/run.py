@@ -11,7 +11,9 @@ prints one JSON line last on standard output: `correct`, `attempted`,
 `failed`, `metrics` (the cell's end-to-end metrics, or with `--trace 1`
 its per-layer ones, each read by `metrics/<name>.py`), `device`, with
 `--trace 1` `breakdown`, and last `checks`, each number compared beside
-its limit (also the last lines on standard error).
+its limit (also the last lines on standard error). A `--trace 1` run also
+turns the program's own spans on (`profiling.enable`) before the system
+is built; the drivers keep what they recorded in the window.
 
 Without a CUDA device it exits non-zero and prints no result. `--rehearse`
 runs the cell end to end on the CPU at the tiny size of the configuration's
@@ -166,17 +168,22 @@ def main(argv=None) -> int:
 
         kernels.build()
     cfg = spec.program_config(cell, args.rehearse)
+    overrides = spec.reference_overrides(cell, args.rehearse)
     drivers = {"stream": stream.run, "batch": batch.run}
-    with tempfile.TemporaryDirectory(prefix="vio_bench_") as scratch:
-        ctx = Context(cell, cfg, args.seed, args.seconds, bool(args.trace), device, scratch)
-        rec = drivers[cell.traffic["kind"]](ctx)
+    if args.trace:
+        from pose_estimation_tpu_torch import profiling
+
+        profiling.enable(device)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vio_bench_") as scratch:
+            ctx = Context(cell, cfg, args.seed, args.seconds, bool(args.trace), device, scratch)
+            rec = drivers[cell.traffic["kind"]](ctx)
+    finally:
+        if args.trace:
+            profiling.disable()
     rec.setup_s = ctx.setup_done - T_START
 
     # the comparison, after the window, with the program freed
-    from vio_bench.ref.utils.config import load_config as ref_load
-
-    overrides = (spec.rehearsal_overrides(cell, ref_load(cell.yaml, cell.config["dataset"]))
-                 if args.rehearse else {})
     t_ref = time.perf_counter()
     reference = check.Reference(cell.yaml, cell.config["dataset"], overrides, device)
     found = check.gaps(reference, rec.samples, rec.world, rec.program_pose)

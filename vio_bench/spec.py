@@ -3,7 +3,14 @@
 traffic mix (`traffic/<name>.json`), the comparison's limits
 (`limits/<cell>.json`) and the metrics the cell reports (each a reader in
 `metrics/<metric>.py`). Nothing here knows a cell by name: a new cell is
-new files and entries."""
+new files and entries.
+
+A configuration's manifest may carry `program`: `VIOConfig` fields that
+the upstream YAML does not (such as `{"full_ba_keyframes": true}`), each
+also named under `assumed` with its reason. They are applied to the
+program's configuration and to the reference's alike, before the
+rehearsal's sizes; a field that either side's `VIOConfig` lacks stops the
+run."""
 
 from __future__ import annotations
 
@@ -61,20 +68,53 @@ def load_cell(workload: str, rehearse: bool = False, bench_path: Path | None = N
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _applies(m, workload, reported)]
     limits = json.loads((data / "limits" / f"{workload}.json").read_text())
+    program = manifest.get("program", {})
+    if not isinstance(program, dict):
+        raise ValueError(f"configuration {w['config']!r}: 'program' is not an object")
+    unnamed = sorted(set(program) - set(manifest.get("assumed", {})))
+    if unnamed:
+        raise ValueError(f"configuration {w['config']!r}: program field(s) {unnamed} "
+                         "not named under 'assumed' with a reason")
     return Cell(workload, manifest, (root / cfg_entry["file"]).parent, traffic, int(w["chips"]),
                 e2e, per_layer, limits)
 
 
+def program_fields(cell: Cell, config_type, side: str) -> dict:
+    """The manifest's `program` fields, each checked to be a field of
+    `config_type` (`side`'s `VIOConfig`)."""
+    fields = cell.config.get("program", {})
+    unknown = sorted(set(fields) - {f.name for f in dataclasses.fields(config_type)})
+    if unknown:
+        raise ValueError(f"configuration {cell.config['name']!r}: {side}'s VIOConfig has no "
+                         f"field(s) {unknown} (the manifest's 'program')")
+    return dict(fields)
+
+
 def program_config(cell: Cell, rehearse: bool):
     """The configuration as the replay CLIs load it (the program's
-    `load_config` of the YAML), at the rehearsal's tiny size with
-    `rehearse`."""
+    `load_config` of the YAML, with the manifest's `program` fields), at
+    the rehearsal's tiny size with `rehearse`."""
     import dataclasses as dc
 
     from pose_estimation_tpu_torch import load_config
+    from pose_estimation_tpu_torch.utils.config import VIOConfig
 
-    cfg = load_config(cell.yaml, dataset=cell.config["dataset"])
+    cfg = load_config(cell.yaml, dataset=cell.config["dataset"],
+                      **program_fields(cell, VIOConfig, "the program"))
     return dc.replace(cfg, **rehearsal_overrides(cell, cfg)) if rehearse else cfg
+
+
+def reference_overrides(cell: Cell, rehearse: bool) -> dict:
+    """The reference's changes to its own load of the YAML
+    (`check.Reference`'s `overrides`): the manifest's `program` fields,
+    then with `rehearse` the rehearsal's sizes."""
+    from vio_bench.ref.utils.config import VIOConfig, load_config
+
+    fields = program_fields(cell, VIOConfig, "the reference")
+    if not rehearse:
+        return fields
+    cfg = load_config(cell.yaml, cell.config["dataset"], **fields)
+    return {**fields, **rehearsal_overrides(cell, cfg)}
 
 
 def rehearsal_overrides(cell: Cell, cfg) -> dict:

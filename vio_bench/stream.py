@@ -21,6 +21,10 @@ The comparison runs the reference from the program's state at `samples`
 window frames drawn from the seed among the first `sample_rate_low` x
 seconds, and at the first frames after each of the window's first
 `after_refine` replayed gravity refinements, `chain` frames each.
+
+A traced run keeps the program's own spans over the window
+(`record.program_trace`): cleared when the window starts, read when it
+ends.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def _refine_captured(slam) -> bool:
 
 
 def run(ctx) -> Record:
-    from pose_estimation_tpu_torch import graphs
+    from pose_estimation_tpu_torch import graphs, profiling
     from pose_estimation_tpu_torch.slam import SensorType, State, VisualInertialSLAM
 
     tr, rec = ctx.traffic, Record()
@@ -126,6 +130,8 @@ def run(ctx) -> Record:
     refines_seen, after_refine = _refine_replays(slam), tr["after_refine"]
     reset_ms = 0.0
     ctx.mark_setup_done()
+    if ctx.trace:
+        profiling.reset()
     t0 = time.perf_counter()
     n = 0
     while True:
@@ -199,7 +205,9 @@ def run(ctx) -> Record:
     rec.host_ms = host_ms
     rec.sync_ms = sync_ms
     rec.reset_ms = reset_ms
-    rec.trace = tracer.read() if ctx.trace else None
+    if ctx.trace:
+        rec.program_trace = profiling.read()
+        rec.trace = tracer.read()
     rec.memory_peak_bytes = ctx.memory_peak()
     for key, count in _solve_calls(slam).items():
         if count == 1 and key not in calls_before:

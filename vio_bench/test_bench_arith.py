@@ -99,7 +99,8 @@ def test_trace_reading():
     """The traced stretch's reading from a profiler's events: the busy time
     clipped to the stretch, the gaps named by the span covering them, the
     kernels' times by name; the annotations on the device's timeline left
-    out."""
+    out; and the stretch and its device intervals in ns on the clock of the
+    program's spans (the profiler's start, 1,000 ns here, plus its us)."""
     from vio_bench import trace
 
     ev = [_event(0, 100, trace.STRETCH, "CPU"), _event(0, 30, "process", "CPU"),
@@ -109,7 +110,8 @@ def test_trace_reading():
           _event(70, 74, "fast_select_kernel"), _event(90, 130, "copy"),
           _event(0, 100, "process", "CUDA", True)]
     tr = trace.Tracer(True, lambda: None)
-    tr.prof = types.SimpleNamespace(events=lambda: ev)
+    tr.prof = types.SimpleNamespace(events=lambda: ev, profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(trace_start_ns=lambda: 1000)))
     got = tr.read()
     assert got.window_s == 100 / 1e6
     assert got.busy_s == (10 + 13 + 4 + 10) / 1e6
@@ -119,3 +121,6 @@ def test_trace_reading():
     assert got.idle_gaps[0] == ["imu_feed", 45 / 1e6]
     assert got.idle_gaps[1] == ["process", 16 / 1e6]
     assert [n for n, _ in got.device_ops][0] == "copy"
+    assert got.stretch_ns == (1000, 101000)
+    assert got.device_ns == [(1000, 11000), (13000, 21000), (16000, 26000), (71000, 75000),
+                             (91000, 101000)]

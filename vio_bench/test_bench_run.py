@@ -1,5 +1,6 @@
 """The harness end to end on the CPU: each traffic kind's rehearsal comes
-out correct; a cell added from new files only runs; the timed path broken
+out correct, and traced keeps the program's own spans for the readers of
+them; a cell added from new files only runs; the timed path broken
 underneath (a step that returns its state unchanged, half the batch left
 out, an answer altered where it is produced) comes out not correct; a run
 without a card, or without the program beside the benchmark, exits
@@ -32,8 +33,8 @@ def _few_threads():
     torch.set_num_threads(before)
 
 
-def _rehearse(capsys, workload, seed, extra=()):
-    rc = bench.main(["--workload", workload, "--seed", str(seed), "--seconds", "1.5",
+def _rehearse(capsys, workload, seed, extra=(), seconds=1.5):
+    rc = bench.main(["--workload", workload, "--seed", str(seed), "--seconds", str(seconds),
                      "--rehearse", *extra])
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0
@@ -51,6 +52,50 @@ def test_rehearsal_is_correct(capsys, workload, seed):
     assert line["metrics"] == {} and line["device"]["platform"] == "cpu"
     assert list(line)[-1] == "checks"
     assert line["checks"]["frames_compared"]["value"] >= 1
+
+
+PROGRAM_SPAN_READERS = ("frame_device_ms", "frontend_device_ms", "backend_device_ms",
+                        "lm_iter_device_ms", "device_idle_share_stamped",
+                        "host_wait_ms_per_frame")
+
+
+def keep_views(monkeypatch) -> list:
+    """The `RunView`s that the metric readers of the runs that follow read."""
+    views = []
+
+    class Kept(bench.RunView):
+        def __init__(self, *a):
+            super().__init__(*a)
+            views.append(self)
+
+    monkeypatch.setattr(bench, "RunView", Kept)
+    return views
+
+
+@pytest.mark.parametrize("workload,seed", [("euroc-stream", 2**31 + 31), ("kitti-batch32", 32)])
+def test_traced_rehearsal_keeps_the_program_spans(capsys, monkeypatch, workload, seed):
+    """On the CPU the host clock stands in for the device's timer, so the
+    program's spans are there; the profiler records no device work, so the
+    readers that lay them against it find nothing, and none raises. The
+    profiler's start falls inside the window, hence its longer length."""
+    from pose_estimation_tpu_torch import profiling
+    from vio_bench import spec
+
+    views = keep_views(monkeypatch)
+    line = _rehearse(capsys, workload, seed, ("--trace", "1"), seconds=6)
+    assert line["correct"] is True, line
+    trace = views[-1].record.program_trace
+    assert {"ok_step.backend", "lm.ba"} <= {s.name for s in trace.spans}
+    for name in PROGRAM_SPAN_READERS:
+        value = spec.reader(name)(views[-1])
+        assert value is None or value >= 0, name
+    assert profiling.stamp_count() == 0       # tracing is off again after the run
+
+
+def test_untraced_run_keeps_no_program_spans(capsys, monkeypatch):
+    views = keep_views(monkeypatch)
+    assert _rehearse(capsys, "kitti-stream", 33)["correct"] is True
+    assert views[-1].record.program_trace is None and views[-1].record.trace is None
 
 
 def _keep_lanes(monkeypatch, share):

@@ -10,7 +10,9 @@ only. From them: the stretch's length, the device's busy time (the union
 of the work's intervals), each kernel's device times by name, the
 operations that took most time, and the longest idle gaps, each named by
 the harness span that covers most of it (or `harness` for the harness's
-own work between spans).
+own work between spans). Beside them, on the clock of the program's own
+spans (`stamps.profiler_timeline`), the stretch's bounds and its device
+intervals, which the readers of those spans lay against them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-from vio_bench import arith
+from vio_bench import arith, stamps
 
 SPANS = ("imu_feed", "process", "step", "sync")
 STRETCH = "bench.traced"
@@ -37,6 +39,8 @@ class Trace:
     kernel_ms: dict          # kernel name -> [device ms of each launch]
     device_ops: list         # [[name, seconds]], the 10 largest sums
     idle_gaps: list          # [[host span, seconds]], the 10 longest gaps
+    stretch_ns: tuple | None = None   # (start, end) on the program spans' clock
+    device_ns: list | None = None     # [(start, end)] of the device work in it, same clock
 
     def mean_kernel_ms(self, part: str) -> float | None:
         """The mean device ms of the launches whose kernel name holds
@@ -126,5 +130,7 @@ class Tracer:
                     cover[n] = cover.get(n, 0.0) + part
             named.append([max(cover, key=cover.get) if cover else "harness", length / 1e6])
         top = sorted(sums.items(), key=lambda kv: -kv[1])[:10]
+        stretch_ns, device_ns = stamps.profiler_timeline(self.prof, STRETCH)
         return Trace(window_s=(t1 - t0) / 1e6, busy_s=busy / 1e6, kernel_ms=kernel_ms,
-                     device_ops=[[n, s] for n, s in top], idle_gaps=named)
+                     device_ops=[[n, s] for n, s in top], idle_gaps=named,
+                     stretch_ns=stretch_ns, device_ns=device_ns)
